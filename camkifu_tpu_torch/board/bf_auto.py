@@ -15,6 +15,11 @@ camkifu_tpu/board/bf_auto.py on tensors.
 Corners are the goban's corner intersections, tl/tr/br/bl, in frame
 pixels. The reference's ``lax.cond`` branches become Python ``if``s on a
 device scalar, which waits for the device twice per detection.
+
+``detect_batch`` runs stage 1 for a whole batch (one edge and one Hough
+launch) and refines each chunk of frames on a shared canvas (one warp
+launch per chunk), validated on the device; ``detect_batch_stable`` is the
+fixed-camera estimate of the recorded-video path.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch.nn.functional as F
 
 from camkifu_tpu.config import cvconf
 from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
-from camkifu_tpu_torch.ops.edges import edge_map, percentile
+from camkifu_tpu_torch.ops.edges import edge_map_batch, percentile
 from camkifu_tpu_torch.ops.filters import edge_pad, sobel
 from camkifu_tpu_torch.ops.hough import hough_accumulate, top_k, \
     topk_edge_points
@@ -54,20 +59,32 @@ def _f32(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor without waiting for the device:
+    indexing with a 0-d tensor reads it on the host, a 1-element index
+    tensor does not."""
+    return x[i.reshape(1)][0]
+
+
 def _order_quad(pts_xy: torch.Tensor) -> torch.Tensor:
-    """Order 4 points tl/tr/br/bl (image y grows downward)."""
-    ctr = pts_xy.mean(dim=0)
-    ang = torch.atan2(pts_xy[:, 1] - ctr[1], pts_xy[:, 0] - ctr[0])
-    ordered = pts_xy[torch.argsort(ang, stable=True)]
-    roll = torch.argmin(ordered.sum(dim=1))
+    """Order 4 points (..., 4, 2) tl/tr/br/bl (image y grows downward)."""
+    ctr = pts_xy.mean(dim=-2, keepdim=True)
+    ang = torch.atan2(pts_xy[..., 1] - ctr[..., 1],
+                      pts_xy[..., 0] - ctr[..., 0])
+    order = torch.argsort(ang, dim=-1, stable=True)
+    ordered = torch.gather(pts_xy, -2, order[..., None].expand_as(pts_xy))
+    roll = torch.argmin(ordered.sum(dim=-1), dim=-1, keepdim=True)
     ar = torch.arange(4, device=pts_xy.device)
-    ordered = ordered[(ar + roll) % 4]
-    flipped = ordered[torch.tensor([0, 3, 2, 1], device=pts_xy.device)]
-    return torch.where(ordered[1, 0] >= ordered[3, 0], ordered, flipped)
+    ordered = torch.gather(ordered, -2,
+                           ((ar + roll) % 4)[..., None].expand_as(pts_xy))
+    flipped = ordered[..., [0, 3, 2, 1], :]
+    keep = (ordered[..., 1, 0] >= ordered[..., 3, 0])[..., None, None]
+    return torch.where(keep, ordered, flipped)
 
 
 def _box_blur(img: torch.Tensor, radius: int) -> torch.Tensor:
-    """Separable box filter via cumulative sums (O(n), any radius)."""
+    """Separable box filter over the last two dims via cumulative sums
+    (O(n), any radius)."""
     def along(a, dim):
         c = torch.cumsum(a, dim=dim)
         n = a.shape[dim]
@@ -76,7 +93,7 @@ def _box_blur(img: torch.Tensor, radius: int) -> torch.Tensor:
         hi = cp.narrow(dim, 2 * radius + 1, n)
         lo = cp.narrow(dim, 0, n)
         return (hi - lo) / (2 * radius + 1)
-    return along(along(img, 0), 1)
+    return along(along(img, img.ndim - 2), img.ndim - 1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -100,33 +117,36 @@ def _resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
 
 def resize_bilinear(img: torch.Tensor,
                     out_hw: tuple[int, int]) -> torch.Tensor:
-    """(H, W) float32 → out_hw, as ``jax.image.resize(img, out_hw,
-    "bilinear")`` computes it: separable weight matrices, two matmuls."""
-    h, w = img.shape
+    """(..., H, W) float32 → (..., *out_hw), as ``jax.image.resize(img,
+    out_hw, "bilinear")`` computes it: separable weight matrices, two
+    matmuls (the same matrices for every leading index)."""
+    h, w = img.shape[-2:]
     wh = _resize_matrix(h, out_hw[0], img.device)
     ww = _resize_matrix(w, out_hw[1], img.device)
     return wh.T @ img @ ww
 
 
-def _coarse_quad(gray_small: torch.Tensor,
-                 chroma_small: torch.Tensor | None = None):
-    """Edge-density board-region quadrilateral on the detection-res gray
-    (and chroma) → (quad (4, 2) in detection-res coords, score)."""
-    mag = edge_map(gray_small)
-    mag_c = edge_map(chroma_small) if chroma_small is not None else None
-    return _coarse_from_mag(mag, mag_c)
-
-
 def _coarse_from_mag(mag: torch.Tensor, mag_c: torch.Tensor | None):
-    """The dense post-edge half of ``_coarse_quad``: edge maps → (quad,
-    score); score < ~0.1 means "no board found"."""
-    res = mag.shape[0]
+    """The dense post-edge half of detection stage 1: edge maps (res, res)
+    or (B, res, res) → (quad (4, 2) or (B, 4, 2), score () or (B,)); score
+    < ~0.1 means "no board found".
+
+    Every statistic is taken per frame, where the reference vmaps:
+    percentiles, connected-component sizes (ids offset per frame), top-k
+    corners and the score. Nothing in it waits for the device.
+    """
+    if mag.ndim == 2:
+        quad, score = _coarse_from_mag(
+            mag[None], None if mag_c is None else mag_c[None])
+        return quad[0], score[0]
+    b, res = mag.shape[0], mag.shape[-1]
     dev = mag.device
     if mag_c is not None:
         # Union in per-channel-normalized units (strided percentiles).
-        mag = torch.maximum(
-            mag / torch.clamp(percentile(mag[::2, ::2], 99.5), min=1e-6),
-            mag_c / torch.clamp(percentile(mag_c[::2, ::2], 99.5), min=1e-6))
+        def norm(m):
+            ref = percentile(m[:, ::2, ::2].reshape(b, -1), 99.5, dim=1)
+            return m / torch.clamp(ref, min=1e-6)[:, None, None]
+        mag = torch.maximum(norm(mag), norm(mag_c))
     density = _box_blur((mag > 0).to(torch.float32), radius=7)
     mask = density > 0.06
 
@@ -135,66 +155,81 @@ def _coarse_from_mag(mag: torch.Tensor, mag_c: torch.Tensor | None):
     # propagation on the 2-px-eroded core at half resolution.
     core = _box_blur(mask.to(torch.float32), 2) > 0.999
     h2 = res // 2
-    core2 = core[:h2 * 2, :h2 * 2].reshape(h2, 2, h2, 2).all(dim=3).all(dim=1)
-    idx0 = torch.arange(1, h2 * h2 + 1, dtype=torch.float32,
+    n_ids = h2 * h2 + 1
+    core2 = core[:, :h2 * 2, :h2 * 2].reshape(b, h2, 2, h2, 2) \
+        .all(dim=4).all(dim=2)
+    idx0 = torch.arange(1, n_ids, dtype=torch.float32,
                         device=dev).reshape(h2, h2)
     # float32 ids are exact below 2**24; 0 pads the 5×5 window as the
-    # reference's reduce_window init does (ids are ≥ 0).
-    ids = torch.where(core2, idx0, 0.0)
+    # reference's reduce_window init does (ids are ≥ 0). One max-pool
+    # launch per step covers every frame.
+    ids = torch.where(core2, idx0, 0.0)[:, None]
     for _ in range(2 * h2):
-        m = F.max_pool2d(ids[None, None], 5, stride=1, padding=2)[0, 0]
-        ids = torch.where(core2, m, 0.0)
-    ids = ids.to(torch.int64)
-    sizes = torch.bincount(ids.reshape(-1), minlength=h2 * h2 + 1)
-    sizes[0] = 0
-    best = torch.argmax(sizes)
-    keep2 = (ids > 0) & (sizes[ids] >= CLUTTER_COMP_KEEP * sizes[best])
-    comp = keep2.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+        ids = torch.where(core2[:, None],
+                          F.max_pool2d(ids, 5, stride=1, padding=2), 0.0)
+    ids = ids[:, 0].to(torch.int64).reshape(b, -1)
+    # Component sizes per frame: ids offset by frame into one count
+    # (a scatter-add, which unlike bincount does not wait for the device).
+    off = ids + torch.arange(b, device=dev)[:, None] * n_ids
+    sizes = torch.zeros(b * n_ids, dtype=torch.int64, device=dev) \
+        .scatter_add_(0, off.reshape(-1), torch.ones_like(off.reshape(-1))) \
+        .reshape(b, n_ids)
+    sizes[:, 0] = 0
+    best = sizes.amax(dim=1, keepdim=True)
+    keep2 = (ids > 0) & (torch.gather(sizes, 1, ids)
+                         >= CLUTTER_COMP_KEEP * best)
+    keep2 = keep2.reshape(b, h2, h2)
+    comp = keep2.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     comp = F.pad(comp, (0, res - h2 * 2, 0, res - h2 * 2))
     comp = (_box_blur(comp.to(torch.float32), 3) > 1e-6) & mask
-    flood_ok = 4 * keep2.sum() > 0.25 * torch.clamp(mask.sum(), min=1)
-    mask = torch.where(flood_ok, comp, mask)
+    flood_ok = 4 * keep2.sum(dim=(1, 2)) \
+        > 0.25 * torch.clamp(mask.sum(dim=(1, 2)), min=1)
+    mask = torch.where(flood_ok[:, None, None], comp, mask)
 
     ar = torch.arange(res, dtype=torch.float32, device=dev)
     ys = ar[:, None].expand(res, res)
     xs = ar[None, :].expand(res, res)
+    xs_flat, ys_flat = xs.reshape(-1), ys.reshape(-1)
+    mask_flat = mask.reshape(b, -1)
 
     def corner(proj, k=49):
-        p = torch.where(mask, proj, float("-inf")).reshape(-1)
-        _, idx = top_k(p, k)
+        p = torch.where(mask_flat, proj.reshape(-1), float("-inf"))
+        _, idx = top_k(p, k)                                   # (B, k)
         # 49 values: an odd count, so torch.median is jnp.median here.
-        return torch.stack([torch.median(xs.reshape(-1)[idx]),
-                            torch.median(ys.reshape(-1)[idx])])
+        return torch.stack([torch.median(xs_flat[idx], dim=1).values,
+                            torch.median(ys_flat[idx], dim=1).values], -1)
 
     quad = _order_quad(torch.stack([
         corner(-(xs + ys)),        # tl
         corner(xs - ys),           # tr
         corner(xs + ys),           # br
         corner(ys - xs),           # bl
-    ]))
+    ], dim=1))                                                 # (B, 4, 2)
 
     # Score: edge density concentrated in the quad, times line structure.
-    inside = torch.ones((res, res), dtype=torch.bool, device=dev)
+    inside = torch.ones((b, res, res), dtype=torch.bool, device=dev)
     for i in range(4):
-        p0, p1 = quad[i], quad[(i + 1) % 4]
-        e = p1 - p0
-        inside &= ((xs - p0[0]) * e[1] - (ys - p0[1]) * e[0]) <= 0
-    in_mean = torch.where(inside, density, 0.0).sum() \
-        / torch.clamp(inside.sum(), min=1)
-    out_count = (~inside).sum()
-    out_mean = torch.where(~inside, density, 0.0).sum() \
+        p0 = quad[:, i, None, None, :]
+        e = quad[:, (i + 1) % 4, None, None, :] - p0
+        inside &= ((xs - p0[..., 0]) * e[..., 1]
+                   - (ys - p0[..., 1]) * e[..., 0]) <= 0
+    in_mean = torch.where(inside, density, 0.0).sum(dim=(1, 2)) \
+        / torch.clamp(inside.sum(dim=(1, 2)), min=1)
+    out_count = (~inside).sum(dim=(1, 2))
+    out_mean = torch.where(~inside, density, 0.0).sum(dim=(1, 2)) \
         / torch.clamp(out_count, min=1)
     diff = torch.where(out_count > 0.05 * res * res, in_mean - out_mean,
                        in_mean)
     contrast = diff / torch.clamp(in_mean, min=1e-3)
-    pts, wts = topk_edge_points(mag)
+    pts, wts = topk_edge_points(mag)                   # (B, K, 2), (B, K)
     acc = hough_accumulate(pts, wts, float(np.hypot(res, res)))
-    peakedness = acc.max() / torch.clamp(acc.mean(), min=1e-6)
+    peakedness = acc.amax(dim=(1, 2)) \
+        / torch.clamp(acc.mean(dim=(1, 2)), min=1e-6)
     structure = torch.clamp((peakedness - 7.0) / 6.0, 0.0, 1.0)
 
-    e1 = quad[1] - quad[0]
-    e2 = quad[3] - quad[0]
-    quad_area = torch.abs(e1[0] * e2[1] - e1[1] * e2[0])
+    e1 = quad[:, 1] - quad[:, 0]
+    e2 = quad[:, 3] - quad[:, 0]
+    quad_area = torch.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
     score = torch.clamp(contrast, 0.0, 1.0) * structure \
         * (quad_area > (0.15 * res) ** 2)
     return quad, score
@@ -493,7 +528,7 @@ def _fit_combs_multi(H: torch.Tensor, col_profile: torch.Tensor,
             scores = torch.where(valid, teeth - gw * gap, float("-inf"))
             flat = torch.argmax(scores)
             n_sp = spacings.shape[0]
-            return offsets[flat // n_sp], spacings[flat % n_sp]
+            return _at(offsets, flat // n_sp), _at(spacings, flat % n_sp)
         ox, sx = pick(grid_x)
         oy, sy = pick(grid_y)
         ox, sx = _snap_teeth(col_profile, ox, sx, gsize)
@@ -609,7 +644,7 @@ def _evidence_polish(E: torch.Tensor, H: torch.Tensor, Hinv: torch.Tensor,
             cands = rc.expand(k * k, 4, 2).clone()
             cands[:, i] += dxy
             ev = _lattice_evidence_rc(E, cands, gsize)
-            rc = cands[torch.argmax(ev)]
+            rc = _at(cands, torch.argmax(ev))
     return apply_homography(H, rc)
 
 
@@ -648,17 +683,30 @@ def _resid_rotation(rect: torch.Tensor):
 
 def _detect_prepare(frame: torch.Tensor, res: int):
     """Detection stage 1: (H, W, 3) frame → (gray u8 (H, W), coarse quad
-    (4, 2) frame px, score)."""
-    h, w = frame.shape[0], frame.shape[1]
-    gray = rgb_to_gray_u8(frame)
-    fscale = 1.0 / 255.0 if frame.dtype == torch.uint8 else 1.0
-    small = resize_bilinear(gray.to(torch.float32) / 255.0, (res, res))
-    chroma = resize_bilinear(
-        (frame[..., 0].to(torch.float32) - frame[..., 2].to(torch.float32))
+    (4, 2) frame px, score): ``_detect_prepare_batch`` of one frame."""
+    grays, quads, scores = _detect_prepare_batch(frame[None], res)
+    return grays[0], quads[0], scores[0]
+
+
+def _detect_prepare_batch(frames: torch.Tensor, res: int):
+    """Batched detection stage 1: (B, H, W, 3) → (grays u8 (B, H, W),
+    quads (B, 4, 2) frame px, scores (B,)).
+
+    Luma and chroma of the whole batch are resized by the same weight
+    matrices, their 2B edge maps are one edge-kernel launch on the card,
+    and ``_coarse_from_mag`` takes every frame at once (one Hough launch).
+    """
+    b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    grays = rgb_to_gray_u8(frames)
+    fscale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
+    smalls = resize_bilinear(grays.to(torch.float32) / 255.0, (res, res))
+    chromas = resize_bilinear(
+        (frames[..., 0].to(torch.float32) - frames[..., 2].to(torch.float32))
         * fscale, (res, res))
-    quad_small, score = _coarse_quad(small, chroma)
-    scale = _f32([(w - 1) / (res - 1), (h - 1) / (res - 1)], frame.device)
-    return gray, quad_small * scale[None, :], score
+    mags = edge_map_batch(torch.cat([smalls, chromas]))
+    quads, scores = _coarse_from_mag(mags[:b], mags[b:])
+    scale = _f32([(w - 1) / (res - 1), (h - 1) / (res - 1)], frames.device)
+    return grays, quads * scale, scores
 
 
 def _detect_refine(gray: torch.Tensor, quad: torch.Tensor, score,
@@ -693,7 +741,7 @@ def _detect_refine(gray: torch.Tensor, quad: torch.Tensor, score,
     E = _evidence_map(rect, gsize)
     Hinv = torch.linalg.inv_ex(H).inverse
     rank1 = _rank_evidence(vc1, E, Hinv, quad, cell, gsize)
-    w1 = vc1[torch.argmax(rank1)]
+    w1 = _at(vc1, torch.argmax(rank1))
     pin1 = _pin_corners(gray, w1, gsize)
     if bool(score > 0.55):                            # line-dominated
         return pin1.to(torch.float32)
@@ -705,19 +753,19 @@ def _detect_refine(gray: torch.Tensor, quad: torch.Tensor, score,
         cands = torch.cat([cands, vc2])
         ranks = torch.cat(
             [ranks, _rank_evidence(vc2, E, Hinv, quad, cell, gsize)])
-        w = cands[torch.argmax(ranks)]
+        w = _at(cands, torch.argmax(ranks))
     pins = torch.stack([pin1, _pin_corners(gray, w, gsize)])
     cands = torch.cat([cands, pins])
     ranks = torch.cat(
         [ranks, _rank_evidence(pins, E, Hinv, quad, cell, gsize)])
     # Two evidence-ascent polish → re-rank rounds of the running winner.
     for _ in range(2):
-        w3 = cands[torch.argmax(ranks)]
+        w3 = _at(cands, torch.argmax(ranks))
         pol = _evidence_polish(E, H, Hinv, w3, gsize)[None]
         cands = torch.cat([cands, pol])
         ranks = torch.cat(
             [ranks, _rank_evidence(pol, E, Hinv, quad, cell, gsize)])
-    return cands[torch.argmax(ranks)].to(torch.float32)
+    return _at(cands, torch.argmax(ranks)).to(torch.float32)
 
 
 def detect_corners(frame: torch.Tensor, res: int = cvconf.bf_resolution,
@@ -732,3 +780,159 @@ def detect_corners(frame: torch.Tensor, res: int = cvconf.bf_resolution,
     gray, quad, score = _detect_prepare(frame, res)
     corners = _detect_refine(gray, quad, score, gsize, refine_iters)
     return corners, score
+
+
+# ---------------------------------------------------------------------------
+# Batched redetection: stage 1 for the whole batch, then per-chunk refines
+# on a chunk-shared rectification canvas, per-frame refines where a chunk
+# fails validation.
+# ---------------------------------------------------------------------------
+
+#: Max stage-1 quad deviation from the chunk median (in cells) for the
+#: shared-canvas refine; beyond it the per-frame refine is the route.
+SHARED_REFINE_SPREAD = 0.55
+
+#: Frames per shared-canvas chunk.
+SHARED_CHUNK = 8
+
+
+def _refine_shared_batch(grays: torch.Tensor, shared_quad: torch.Tensor,
+                         quads: torch.Tensor, gsize: int = 19):
+    """Line-dominated refine of a batch on ONE shared rectification canvas.
+
+    All B grays (B, H, W) are rectified through the homography of
+    ``shared_quad`` in one warp-kernel launch; each frame's own lattice is
+    then measured on its own canvas (comb race, 2D evidence ranking,
+    per-half sub-pixel pin), so its corners come from its own pixels only.
+    The per-frame measurement is a Python loop over frames with no host
+    wait, about 2,600 small device ops a frame (the per-frame refine's
+    line-dominated branch less its gathers), so it is bound by the host's
+    launch rate; a frame dimension through it is the lever.
+    Returns (corners (B, 4, 2), derotate deltas (B,), concentrations (B,)).
+    """
+    res = REFINE_RES
+    H = _rect_H(shared_quad, 0.10, res)
+    scale = 1.0 / 255.0 if grays.dtype == torch.uint8 else 1.0
+    rects = warp_frames(grays[..., None], H, (res, res), scale)[..., 0]
+    Hinv = torch.linalg.inv_ex(H).inverse
+    corners, deltas, concs = [], [], []
+    for rect, quad in zip(rects, quads):
+        colp, rowp = _profiles_of(rect, gsize)
+        _, vc1, _ = _fit_combs_multi(H, colp, rowp, gsize, (1.0, 0.0))
+        E = _evidence_map(rect, gsize)
+        cell = torch.linalg.vector_norm(quad[1] - quad[0]) / (gsize + 0.0)
+        rank1 = _rank_evidence(vc1, E, Hinv, quad, cell, gsize)
+        w1 = _at(vc1, torch.argmax(rank1))
+        corners.append(_pin_corners_on_rect(rect, H, w1, gsize))
+        delta, conc = _resid_rotation(rect)
+        deltas.append(delta)
+        concs.append(conc)
+    return (torch.stack(corners).to(torch.float32), torch.stack(deltas),
+            torch.stack(concs))
+
+
+def _shared_route_body(grays, quads, scores, gsize: int):
+    """Shared-canvas refine + validity verdict for ONE chunk, all on the
+    device: every frame line-dominated, the stage-1 quads within
+    SHARED_REFINE_SPREAD cells of the chunk median, no derotate trip, and
+    finite corners fold into one boolean."""
+    # The median of an even count averages the two middle values, as
+    # jnp.median does; torch.median would return the lower one.
+    med = torch.quantile(quads, 0.5, dim=0)
+    cell = torch.linalg.vector_norm(med[1] - med[0]) / max(gsize - 1, 1)
+    ok = torch.isfinite(quads).all() & (scores > 0.55).all() \
+        & (cell > 1e-6) \
+        & ((quads - med).abs().amax() <= SHARED_REFINE_SPREAD * cell)
+    corners, deltas, concs = _refine_shared_batch(grays, med, quads, gsize)
+    trip = ((torch.abs(deltas * (2.0 / 3.0)) > DEROTATE_TRIP)
+            & (concs > DEROTATE_MIN_CONC)).any()
+    ok = ok & ~trip & torch.isfinite(corners).all()
+    return corners, ok
+
+
+def _chunked_route(grays, quads, scores, gsize: int, chunk: int):
+    """The batch through per-chunk shared-canvas refines → (corners
+    (B, 4, 2), verdicts (B // chunk,) bool), both left on the device. The
+    reference's jitted entry points around it (``_route_and_refine_chunked``,
+    ``_route_and_refine_shared`` for one chunk, and ``_detect_batch_fused``
+    with stage 1 ahead of it) are this function here: eager PyTorch needs
+    no separate entry point."""
+    out = [_shared_route_body(grays[lo:lo + chunk], quads[lo:lo + chunk],
+                              scores[lo:lo + chunk], gsize)
+           for lo in range(0, grays.shape[0], chunk)]
+    return (torch.cat([c for c, _ in out]),
+            torch.stack([ok for _, ok in out]))
+
+
+def _detect_batch_routed(grays, quads, scores, gsize: int):
+    """Route a batch through per-chunk shared-canvas refines; None if every
+    chunk fell back. One host wait: the verdict fetch."""
+    b = grays.shape[0]
+    if b < 2:
+        return None
+    chunk = SHARED_CHUNK if b % SHARED_CHUNK == 0 else b
+    corners, oks = _chunked_route(grays, quads, scores, gsize, chunk)
+    return _merge_routed(grays, quads, scores, corners, oks.cpu().numpy(),
+                         chunk, gsize)
+
+
+def _merge_routed(grays, quads, scores, corners, oks_host: np.ndarray,
+                  chunk: int, gsize: int):
+    """Shared-canvas chunks where the verdict holds, per-frame refines of
+    the failed chunks (``_detect_refine``, the reference's ``_refine_one``);
+    None when no chunk validated."""
+    if not oks_host.any():
+        return None
+    if oks_host.all():
+        return corners
+    out = []
+    for c, ok in enumerate(oks_host):
+        lo, hi = c * chunk, (c + 1) * chunk
+        if ok:
+            out.append(corners[lo:hi])
+        else:
+            out.append(torch.stack([
+                _detect_refine(grays[i], quads[i], scores[i], gsize)
+                for i in range(lo, hi)]))
+    return torch.cat(out)
+
+
+def detect_batch(frames: torch.Tensor, res: int = cvconf.bf_resolution,
+                 gsize: int = 19):
+    """Per-frame detection over a batch (B, H, W, 3) → (corners (B, 4, 2),
+    scores (B,)).
+
+    Stage 1 runs batched; with two frames or more, each chunk of
+    ``SHARED_CHUNK`` frames (or the whole batch where B is not a multiple)
+    is refined on its own shared canvas and validated on the device. The
+    host fetches the verdicts once; chunks that fail validation are
+    refined frame by frame, as ``detect_corners`` refines.
+    """
+    grays, quads, scores = _detect_prepare_batch(frames, res)
+    merged = _detect_batch_routed(grays, quads, scores, gsize)
+    if merged is not None:
+        return merged, scores
+    corners = [_detect_refine(grays[i], quads[i], scores[i], gsize)
+               for i in range(frames.shape[0])]
+    return torch.stack(corners), scores
+
+
+def detect_batch_stable(frames: torch.Tensor,
+                        res: int = cvconf.bf_resolution, gsize: int = 19,
+                        max_frames: int = 8) -> torch.Tensor:
+    """Fixed-camera estimate (4, 2): per-frame detection of at most
+    ``max_frames`` evenly spaced frames, then the median corner positions
+    over the confident ones (the plain median if none is confident).
+
+    Medians average the two middle values of an even count, as
+    ``jnp.median`` and ``jnp.nanmedian`` do (``torch.median`` would take
+    the lower one)."""
+    b = frames.shape[0]
+    if b > max_frames:
+        frames = frames[::max(1, b // max_frames)][:max_frames]
+    corners, scores = detect_batch(frames, res, gsize)
+    ok = (scores >= 0.05)[:, None, None]
+    big = torch.where(ok, corners, float("nan"))
+    med = torch.nanquantile(big, 0.5, dim=0)
+    return torch.where(torch.isnan(med), torch.quantile(corners, 0.5, dim=0),
+                       med)

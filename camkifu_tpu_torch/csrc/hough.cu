@@ -1,13 +1,13 @@
-// Hough vote accumulator: K weighted (x, y) points vote into an
-// (n_theta, n_rho) float32 accumulator with a bilinear rho splat. Replaces
-// the Pallas kernel camkifu_tpu/ops/pallas/hough_kernel.py:
+// Hough vote accumulator: for each of B frames, K weighted (x, y) points
+// vote into an (n_theta, n_rho) float32 accumulator with a bilinear rho
+// splat. Replaces the Pallas kernel camkifu_tpu/ops/pallas/hough_kernel.py:
 // hough_accumulate_pallas, which wrote the scatter as one-hot matmuls
 // because the TPU has no fast scatter.
 //
-// On the GPU the scatter is the cheap part: one block per theta row keeps
-// that row's n_rho bins in shared memory, its threads stride over the K
-// points and add both splat taps with shared-memory atomics, and the block
-// writes the finished row once. Every block reads all K points (32 KB at
+// On the GPU the scatter is the cheap part: one block per (theta row,
+// frame), grid (n_theta, B), keeps that row's n_rho bins in shared memory;
+// its threads stride over the frame's K points and add both splat taps
+// with shared-memory atomics, and the block writes the finished row once. Every block reads all K points (32 KB at
 // K = 4096, from L2 after the first block) and writes n_rho floats, so the
 // kernel is bound by shared-memory atomics, not by device memory. Sums run
 // in another order than the plain version's, so results agree to rounding,
@@ -23,6 +23,10 @@ __global__ void hough_kernel(const float* __restrict__ pts,
                              float rho_max, float rho_scale, float pos_hi) {
   extern __shared__ float acc[];
   const int t = blockIdx.x;
+  const size_t f = blockIdx.y;
+  pts += f * 2 * k;
+  wts += f * k;
+  out += f * gridDim.x * n_rho;
   for (int r = threadIdx.x; r < n_rho; r += blockDim.x) acc[r] = 0.0f;
   __syncthreads();
 
@@ -48,11 +52,12 @@ __global__ void hough_kernel(const float* __restrict__ pts,
 }  // namespace
 
 CAMKIFU_API int camkifu_hough(const void* pts, const void* wts,
-                              const void* trig, void* out, int k,
+                              const void* trig, void* out, int b, int k,
                               int n_theta, int n_rho, float rho_max,
                               float rho_scale, float pos_hi, void* stream) {
   const size_t smem = (size_t)n_rho * sizeof(float);
-  hough_kernel<<<n_theta, 256, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(n_theta, b);
+  hough_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
       (const float*)pts, (const float*)wts, (const float*)trig, (float*)out,
       k, n_rho, rho_max, rho_scale, pos_hi);
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 The sources in ``camkifu_tpu_torch/csrc`` are compiled for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
+(``sm_90a``), one nvcc process per source, all started together, and
+linked into one shared library with a plain C interface, under
 ``build/camkifu_kernels/`` at the root of the checkout. The build runs at
 the first kernel call of a process, and the library's name carries a hash
 of the sources and flags, so an edited source rebuilds and an unchanged one
@@ -30,8 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "camkifu_kernels"
 #: last bits wherever the order of the terms is the same. ``-Xptxas -v``
 #: reports registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +40,7 @@ _SIGNATURES = {
     "camkifu_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "camkifu_edge": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_F), _P],
     "camkifu_edge_taps": [],
-    "camkifu_hough": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "camkifu_hough": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -73,24 +73,42 @@ def library_path() -> Path:
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless a library of the same sources exists.
 
-    Returns (library path, seconds spent compiling — 0 when it was already
-    built, the compiler's log).
+    Returns (library path, seconds spent compiling and linking — 0 when it
+    was already built, the compiler's log).
     """
     so = library_path()
     log = so.with_suffix(".log")
     if so.exists():
         return so, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src}.o" for src in SOURCES]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        outs = [(src, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(SOURCES, procs)]
+        text = "".join(out for _, out, _ in outs)
+        failed = [f"{src} (code {code})" for src, _, code in outs if code]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True, check=False)
+            text += link.stdout + link.stderr
+            if link.returncode:
+                failed.append(f"link (code {link.returncode})")
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{text}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{text}")
     log.write_text(text)
     os.replace(tmp, so)
     return so, seconds, text

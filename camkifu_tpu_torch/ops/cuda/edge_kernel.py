@@ -19,6 +19,7 @@ the padding.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -32,6 +33,9 @@ BORDER = 8
 
 #: Kernel launches since the last reset (one per call on a CUDA tensor).
 launches = 0
+
+#: Launches by the number of maps they covered, reset with ``launches``.
+sizes: collections.Counter = collections.Counter()
 
 
 def _check(gray: torch.Tensor) -> None:
@@ -68,6 +72,7 @@ def edge_magnitude(gray: torch.Tensor, sigma: float = 1.4) -> torch.Tensor:
                                     _build.stream_handle(x.device))
         _build.check(code, "edge")
         launches += 1
+        sizes[n] += 1
     return out if gray.ndim == 3 else out[0]
 
 

@@ -6,17 +6,21 @@ the CUDA source is ``camkifu_tpu_torch/csrc/hough.cu``.
 What bounds it on the card: the accumulator of one θ row (n_ρ floats,
 1 KB at 256) lives in shared memory, so the only device-memory traffic is
 K points read per row (from L2 after the first block) and one write of the
-(n_θ, n_ρ) result; the time goes to 2·K shared-memory atomics per row. The
+(n_θ, n_ρ) result; the time goes to 2·K shared-memory atomics per row. A
+batch of frames is one launch, grid (n_θ, B): 8,192 blocks at B = 64. The
 TPU version built (chunk, n_ρ) one-hot splat matrices for its MXU instead;
-the plain version below does the same with explicit sums, in θ chunks.
+the plain version below does the same with explicit sums, in θ chunks,
+one frame at a time.
 
-Contract (both versions): (K, 2) float32 (x, y) points and (K,) float32
-weights → (n_θ, n_ρ) float32 votes, ρ(θ) = x·cosθ + y·sinθ splatted
-bilinearly into bins over [-rho_max, rho_max], θ at (i + 0.5)·π/n_θ.
+Contract (both versions): (K, 2) or (B, K, 2) float32 (x, y) points and
+(K,) or (B, K) float32 weights → (n_θ, n_ρ) or (B, n_θ, n_ρ) float32
+votes, ρ(θ) = x·cosθ + y·sinθ splatted bilinearly into bins over
+[-rho_max, rho_max], θ at (i + 0.5)·π/n_θ.
 """
 
 from __future__ import annotations
 
+import collections
 import numpy as np
 import torch
 
@@ -25,9 +29,16 @@ from camkifu_tpu_torch.ops.cuda import _build
 #: Kernel launches since the last reset (one per call on a CUDA tensor).
 launches = 0
 
+#: Launches by the number of frames they covered, reset with ``launches``.
+sizes: collections.Counter = collections.Counter()
+
 #: θ rows per step of the plain version: its one-hot temporaries are
-#: (rows, K, n_ρ), 64 MB of float32 at K = 4096, n_ρ = 256.
+#: (rows, K, n_ρ), 64 MB of float32 at K = 4096, n_ρ = 256. It steps
+#: through a batch one frame at a time, so that bound holds at any B.
 REF_ROWS = 16
+
+#: The grid's y dimension carries the frames.
+MAX_BATCH = 65535
 
 #: Largest n_ρ whose row fits the 48 KB of dynamic shared memory a launch
 #: gets without opting in to more.
@@ -51,11 +62,11 @@ def _bins(n_rho: int, rho_max: float):
 def _check(points: torch.Tensor, weights: torch.Tensor) -> None:
     if points.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError("hough_accumulate takes float32 points and weights")
-    if points.ndim != 2 or points.shape[1] != 2 \
-            or weights.shape != points.shape[:1]:
-        raise ValueError(f"hough_accumulate takes (K, 2) points and (K,) "
-                         f"weights, got {tuple(points.shape)} and "
-                         f"{tuple(weights.shape)}")
+    if points.ndim not in (2, 3) or points.shape[-1] != 2 \
+            or weights.shape != points.shape[:-1]:
+        raise ValueError(f"hough_accumulate takes (K, 2) or (B, K, 2) "
+                         f"points and (K,) or (B, K) weights, got "
+                         f"{tuple(points.shape)} and {tuple(weights.shape)}")
 
 
 def hough_accumulate(points: torch.Tensor, weights: torch.Tensor,
@@ -71,28 +82,41 @@ def hough_accumulate(points: torch.Tensor, weights: torch.Tensor,
         raise ValueError("hough_accumulate needs contiguous tensors")
     if not 2 <= n_rho <= MAX_RHOS:
         raise ValueError(f"n_rho must lie in [2, {MAX_RHOS}], got {n_rho}")
-    lib = _build.lib()
-    trig = _trig(n_theta, points.device)
-    out = torch.empty((n_theta, n_rho), dtype=torch.float32,
+    pts = points if points.ndim == 3 else points[None]
+    b, k = pts.shape[0], pts.shape[1]
+    if b > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} frames per launch, got {b}")
+    out = torch.empty((b, n_theta, n_rho), dtype=torch.float32,
                       device=points.device)
-    rho_scale, pos_hi = _bins(n_rho, rho_max)
-    with torch.cuda.device(points.device):
-        code = lib.camkifu_hough(points.data_ptr(), weights.data_ptr(),
-                                 trig.data_ptr(), out.data_ptr(),
-                                 points.shape[0], n_theta, n_rho,
-                                 float(rho_max), rho_scale, pos_hi,
-                                 _build.stream_handle(points.device))
-    _build.check(code, "hough")
-    launches += 1
-    return out
+    if out.numel():
+        lib = _build.lib()
+        trig = _trig(n_theta, points.device)
+        rho_scale, pos_hi = _bins(n_rho, rho_max)
+        with torch.cuda.device(points.device):
+            code = lib.camkifu_hough(pts.data_ptr(), weights.data_ptr(),
+                                     trig.data_ptr(), out.data_ptr(), b, k,
+                                     n_theta, n_rho, float(rho_max),
+                                     rho_scale, pos_hi,
+                                     _build.stream_handle(points.device))
+        _build.check(code, "hough")
+        launches += 1
+        sizes[b] += 1
+    return out if points.ndim == 3 else out[0]
 
 
 def hough_accumulate_ref(points: torch.Tensor, weights: torch.Tensor,
                          rho_max: float, n_theta: int = 128,
                          n_rho: int = 256) -> torch.Tensor:
     """Plain PyTorch version: the splat as one-hot comparisons and sums
-    over the points, ``REF_ROWS`` θ rows at a time."""
+    over the points, one frame and ``REF_ROWS`` θ rows at a time."""
     _check(points, weights)
+    if points.ndim == 3:
+        out = torch.empty((points.shape[0], n_theta, n_rho),
+                          dtype=torch.float32, device=points.device)
+        for i in range(points.shape[0]):
+            out[i] = hough_accumulate_ref(points[i], weights[i], rho_max,
+                                          n_theta, n_rho)
+        return out
     trig = _trig(n_theta, points.device)
     rho_scale, pos_hi = _bins(n_rho, rho_max)
     x, y = points[:, 0], points[:, 1]

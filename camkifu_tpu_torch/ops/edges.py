@@ -1,9 +1,9 @@
 """Edge detection: Sobel magnitude + non-maximum suppression + hysteresis
 (port of camkifu_tpu/ops/edges.py).
 
-``edge_map`` takes the fused edge kernel on a CUDA tensor and the plain
-blur/Sobel/NMS path on the CPU, as the reference takes its Pallas kernel on
-its accelerator and the XLA path elsewhere.
+``edge_map`` and ``edge_map_batch`` take the fused edge kernel on a CUDA
+tensor and the plain blur/Sobel/NMS path on the CPU, as the reference takes
+its Pallas kernel on its accelerator and the XLA path elsewhere.
 """
 
 from __future__ import annotations
@@ -58,27 +58,43 @@ def hysteresis(mag: torch.Tensor, low, high, iters: int = 8) -> torch.Tensor:
     return torch.where(reach | strong, mag, 0.0)
 
 
-def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
-    """``jnp.percentile(x, q)`` over all elements (linear interpolation)."""
-    return torch.quantile(x.reshape(-1), q / 100.0, interpolation="linear")
+def percentile(x: torch.Tensor, q: float, dim: int | None = None
+               ) -> torch.Tensor:
+    """``jnp.percentile(x, q)`` (linear interpolation): over all elements,
+    or over ``dim`` alone."""
+    if dim is None:
+        x, dim = x.reshape(-1), 0
+    return torch.quantile(x, q / 100.0, dim=dim, interpolation="linear")
 
 
 def edge_map(gray: torch.Tensor, sigma: float = 1.4,
              low_frac: float = 0.15, high_frac: float = 0.4,
              hysteresis_iters: int = 4) -> torch.Tensor:
-    """Full edge stack on a 2D gray image in [0, 1] → NMS edge magnitudes.
+    """Full edge stack on a 2D gray image in [0, 1] → NMS edge magnitudes
+    (``edge_map_batch`` of one frame)."""
+    return edge_map_batch(gray[None], sigma, low_frac, high_frac,
+                          hysteresis_iters)[0]
 
-    On a CUDA tensor blur+Sobel+NMS run as the fused kernel, which zeroes
-    an 8-px border band; on the CPU they run as plain tensor ops with edge
-    padding and no band, the route the reference takes off the TPU.
-    Thresholds are fractions of the 99.5th percentile of a 2×-strided view.
+
+def edge_map_batch(grays: torch.Tensor, sigma: float = 1.4,
+                   low_frac: float = 0.15, high_frac: float = 0.4,
+                   hysteresis_iters: int = 4) -> torch.Tensor:
+    """``edge_map`` over a batch: (N, H, W) gray in [0, 1] → (N, H, W).
+
+    On a CUDA tensor blur+Sobel+NMS run as the fused kernel, one launch for
+    all N, which zeroes an 8-px border band; on the CPU they run as plain
+    tensor ops with edge padding and no band, the route the reference takes
+    off the TPU. Thresholds are fractions of each frame's own 99.5th
+    percentile of a 2×-strided view; hysteresis runs on the whole batch.
     """
-    if gray.is_cuda:
+    if grays.is_cuda:
         from camkifu_tpu_torch.ops.cuda.edge_kernel import edge_magnitude
 
-        mag = edge_magnitude(gray, sigma=sigma)
+        mags = edge_magnitude(grays.contiguous(), sigma=sigma)
     else:
-        gx, gy = sobel(gaussian_blur(gray, sigma))
-        mag = nms_magnitude(gx, gy)
-    ref = percentile(mag[::2, ::2], 99.5)
-    return hysteresis(mag, low_frac * ref, high_frac * ref, hysteresis_iters)
+        gx, gy = sobel(gaussian_blur(grays, sigma))
+        mags = nms_magnitude(gx, gy)
+    n = mags.shape[0]
+    ref = percentile(mags[:, ::2, ::2].reshape(n, -1), 99.5, dim=1)
+    ref = ref[:, None, None]
+    return hysteresis(mags, low_frac * ref, high_frac * ref, hysteresis_iters)

@@ -24,12 +24,13 @@ def top_k(x: torch.Tensor, k: int):
 
 
 def topk_edge_points(mag: torch.Tensor, k: int = cvconf.hough_topk):
-    """The K strongest edge pixels → (xy (K, 2) float32, weights (K,)).
+    """The K strongest edge pixels of each (..., H, W) map → (xy (..., K, 2)
+    float32, weights (..., K)).
 
     Zero-magnitude padding points get weight 0 (they vote nowhere).
     """
-    w = mag.shape[1]
-    vals, idx = top_k(mag.reshape(-1), k)
+    w = mag.shape[-1]
+    vals, idx = top_k(mag.reshape(*mag.shape[:-2], -1), k)
     ys = (idx // w).to(torch.float32)
     xs = (idx % w).to(torch.float32)
     weights = (vals > 0).to(torch.float32) * torch.sqrt(vals.clamp(min=0.0))
@@ -41,7 +42,8 @@ def hough_accumulate(points: torch.Tensor, weights: torch.Tensor,
                      n_rho: int = cvconf.hough_rhos) -> torch.Tensor:
     """Vote K weighted points into an (n_theta, n_rho) accumulator:
     ρ(θ) = x·cosθ + y·sinθ ∈ [-rho_max, rho_max], bilinearly splatted
-    into ρ bins, θ spanning [0, π)."""
+    into ρ bins, θ spanning [0, π). Points (B, K, 2) with weights (B, K)
+    give (B, n_theta, n_rho), one accumulator per frame."""
     from camkifu_tpu_torch.ops.cuda import hough_kernel
 
     if points.is_cuda:

@@ -7,7 +7,6 @@ vmaps over frames).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def kmeans(x: torch.Tensor, init: torch.Tensor, k: int = 3,
@@ -29,8 +28,12 @@ def kmeans(x: torch.Tensor, init: torch.Tensor, k: int = 3,
         return torch.sum((x[..., :, None, :] - cents[..., None, :, :]) ** 2,
                          dim=-1)
 
+    ks = torch.arange(k, device=x.device)
     for _ in range(iters):
-        assign = F.one_hot(torch.argmin(dists(c), dim=-1), k).to(torch.float32)
+        # One-hot by comparison: F.one_hot checks its input's range on the
+        # host, which waits for the device.
+        assign = (torch.argmin(dists(c), dim=-1)[..., None] == ks) \
+            .to(torch.float32)
         counts = assign.sum(dim=-2)                          # (..., k)
         sums = assign.transpose(-1, -2) @ x                  # (..., k, F)
         new = sums / torch.clamp(counts[..., None], min=1e-6)

@@ -1,6 +1,6 @@
-"""A synthetic camera still of a goban with known labels and corners,
-drawn with numpy alone (no cv2, no JAX), for runs on machines that have
-neither.
+"""Synthetic camera stills and recorded games of a goban with known labels
+and corners, drawn with numpy alone (no cv2, no JAX), for runs on machines
+that have neither. Moves come from the reference's rules engine.
 
 The board is drawn analytically in board coordinates — intersection (r, c)
 at (c, r), the slab reaching half a cell past the outer lines — and every
@@ -12,6 +12,9 @@ follows ``camkifu_tpu.utils.synth.default_corners``.
 from __future__ import annotations
 
 import numpy as np
+
+from camkifu_tpu.gamemodel.move import B, W, Move
+from camkifu_tpu.gamemodel.rules import IllegalMove, RuleUnsafe
 
 WOOD = (193, 154, 107)
 LINE = (40, 30, 20)
@@ -44,13 +47,11 @@ def _homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     return np.append(h, 1.0).reshape(3, 3)
 
 
-def render_still(labels: np.ndarray, frame_hw=(1080, 1920), seed: int = 0,
-                 noise: float = 3.0):
-    """labels (g, g) int (0=E, 1=B, 2=W) → (frame (H, W, 3) uint8 RGB,
-    corners (4, 2) float32)."""
+def _render_clean(labels: np.ndarray, corners: np.ndarray,
+                  frame_hw) -> np.ndarray:
+    """The noise-free frame (H, W, 3) float32 of a board reading."""
     h, w = frame_hw
     g = labels.shape[0]
-    corners = default_corners(frame_hw)
     board = np.array([[0, 0], [g - 1, 0], [g - 1, g - 1], [0, g - 1]],
                      np.float64)
     hi = _homography(corners.astype(np.float64), board)
@@ -78,7 +79,6 @@ def render_still(labels: np.ndarray, frame_hw=(1080, 1920), seed: int = 0,
         lines = np.maximum(lines, star * cover(np.hypot(bu - ru, bv - rv),
                                                0.1))
 
-    rng = np.random.default_rng(seed)
     grain = 1.0 + 0.04 * np.sin(2.0 * np.pi * (bu * 0.9 + 0.05 * bv))
     img = np.empty((h, w, 3), np.float64)
     img[:] = TABLE
@@ -97,5 +97,81 @@ def render_still(labels: np.ndarray, frame_hw=(1080, 1920), seed: int = 0,
         img += (c - img) * cov[..., None]
         hl = np.minimum(c + 35.0, 255.0)
         img += (hl - img) * (cover(glint, radius / 3.0) * cov)[..., None]
-    img += rng.normal(0.0, noise, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8), corners
+    return img.astype(np.float32)
+
+
+def _noisy(img: np.ndarray, rng: np.random.Generator,
+           noise: float) -> np.ndarray:
+    """Gaussian sensor noise of σ ``noise``, drawn in float32 (a recorded
+    game draws it for every frame)."""
+    out = rng.standard_normal(img.shape, dtype=np.float32)
+    out *= np.float32(noise)
+    out += img
+    return np.clip(out, 0, 255, out=out).astype(np.uint8)
+
+
+def render_still(labels: np.ndarray, frame_hw=(1080, 1920), seed: int = 0,
+                 noise: float = 3.0, corners: np.ndarray | None = None):
+    """labels (g, g) int (0=E, 1=B, 2=W) → (frame (H, W, 3) uint8 RGB,
+    corners (4, 2) float32); ``corners`` defaults to ``default_corners``."""
+    if corners is None:
+        corners = default_corners(frame_hw)
+    corners = np.asarray(corners, np.float32)
+    img = _render_clean(labels, corners, frame_hw)
+    return _noisy(img, np.random.default_rng(seed), noise), corners
+
+
+def sample_moves(n: int, gsize: int = 19, seed: int = 7) -> list[Move]:
+    """A seeded random legal alternating game (no captures sought, suicide
+    avoided): the sampler of ``camkifu_tpu.utils.synth.sample_moves``,
+    which needs cv2 to import, on the rules engine alone."""
+    rng = np.random.default_rng(seed)
+    rule = RuleUnsafe(gsize=gsize)
+    moves = []
+    color = B
+    tries = 0
+    while len(moves) < n and tries < 50 * n:
+        tries += 1
+        r, c = int(rng.integers(gsize)), int(rng.integers(gsize))
+        try:
+            rule.put(Move("np", (color, r, c), gsize=gsize))
+            rule.confirm()
+        except IllegalMove:
+            continue
+        moves.append(Move("np", (color, r, c), gsize=gsize))
+        color = W if color == B else B
+    return moves
+
+
+def game_states(moves: list[Move], gsize: int = 19):
+    """The (g, g) int8 board after each move, captures removed."""
+    rule = RuleUnsafe(gsize=gsize)
+    for move in moves:
+        rule.put(move)
+        rule.confirm()
+        yield rule.as_labels()
+
+
+def render_game(moves: list[Move], frames_per_move: int,
+                frame_hw=(720, 1280), gsize: int = 19, seed: int = 0,
+                empty_leadin: int = 2, noise: float = 3.0,
+                corners: np.ndarray | None = None):
+    """A recorded game from a fixed camera → (frames (N, H, W, 3) uint8,
+    corners (4, 2) float32): ``empty_leadin`` frames of the empty board,
+    then ``frames_per_move`` frames after each move. Each board state is
+    rendered once; every frame gets its own sensor noise."""
+    if corners is None:
+        corners = default_corners(frame_hw)
+    corners = np.asarray(corners, np.float32)
+    rng = np.random.default_rng(seed)
+    states = [(np.zeros((gsize, gsize), np.int8), empty_leadin)]
+    states += [(s, frames_per_move) for s in game_states(moves, gsize)]
+    frames = np.empty((sum(k for _, k in states),) + tuple(frame_hw) + (3,),
+                      np.uint8)
+    i = 0
+    for labels, k in states:
+        img = _render_clean(labels, corners, frame_hw)
+        for _ in range(k):
+            frames[i] = _noisy(img, rng, noise)
+            i += 1
+    return frames, corners

@@ -1,4 +1,5 @@
-"""Each CUDA kernel against its plain PyTorch version on the card. Marked
+"""Each CUDA kernel against its plain PyTorch version on the card, at the
+still path's shapes and at the batched detection's. Marked
 ``gpu``: where no CUDA device is present each test skips itself (decided in
 the test body, never at import). Run on a GPU machine, which has no jax
 for tests/conftest.py, with
@@ -91,6 +92,52 @@ def test_hough_kernel_matches_plain():
     ref = hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128, 256)
     torch.cuda.synchronize()
     assert float((ours - ref).abs().max()) <= 1e-2
+
+
+def test_edge_kernel_batch_of_128_matches_plain():
+    """The batch grid at detect_batch's full-redetect shape: N = 128 maps
+    (64 frames' luma and chroma), one launch."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((128, 256, 256), generator=gen)
+    x[::3] = (torch.linspace(0, 1, 256)[None, None, :] > 0.3).float()
+    x = x.to(dev)
+    before = edge_kernel.launches
+    ours = edge_kernel.edge_magnitude(x)
+    assert edge_kernel.launches == before + 1
+    ref = edge_kernel.edge_magnitude_ref(x)
+    torch.cuda.synchronize()
+    b = edge_kernel.BORDER
+    a, r = ours[:, b:-b, b:-b], ref[:, b:-b, b:-b]
+    both = (a > 0) & (r > 0)
+    assert float(both.sum()) >= 0.995 * float(((a > 0) | (r > 0)).sum())
+    assert float((a - r)[both].abs().max()) <= 1e-4
+    assert float(ours[:, :b].abs().max()) == 0.0
+    # Frame 127 is computed as on its own.
+    one = edge_kernel.edge_magnitude(x[127].contiguous())
+    assert torch.equal(one, ours[127])
+
+
+def test_hough_kernel_batch_matches_plain():
+    """A frame dimension on grid y: B = 64 accumulators in one launch,
+    each the plain version of its own frame."""
+    dev = _device()
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(0, 256, (64, 4096, 2))
+                           .astype(np.float32))
+    wts = torch.from_numpy(rng.uniform(0, 2, (64, 4096)).astype(np.float32))
+    wts[:, ::5] = 0
+    pts, wts = pts.to(dev), wts.to(dev)
+    rho_max = float(np.hypot(256, 256))
+    before = hough_kernel.launches
+    ours = hough_kernel.hough_accumulate(pts, wts, rho_max, 128, 256)
+    assert hough_kernel.launches == before + 1
+    assert ours.shape == (64, 128, 256)
+    ref = hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128, 256)
+    torch.cuda.synchronize()
+    assert float((ours - ref).abs().max()) <= 1e-2
+    single = hough_kernel.hough_accumulate(pts[5], wts[5], rho_max, 128, 256)
+    assert float((single - ours[5]).abs().max()) <= 1e-2
 
 
 def test_kernels_count_launches():

@@ -14,8 +14,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "camkifu_tpu_torch",
     "camkifu_tpu_torch.pipeline",
+    "camkifu_tpu_torch.filecheck",
     "camkifu_tpu_torch.board.bf_auto",
+    "camkifu_tpu_torch.ops.background",
     "camkifu_tpu_torch.stone.sf_clustering",
+    "camkifu_tpu_torch.stone.sf_contours",
+    "camkifu_tpu_torch.stone.sf_meta",
+    "camkifu_tpu_torch.stone.votes",
     "camkifu_tpu_torch.ops.cuda._build",
     "camkifu_tpu_torch.ops.cuda.warp_kernel",
     "camkifu_tpu_torch.ops.cuda.edge_kernel",

@@ -1,13 +1,17 @@
-"""Where the port's c2 time goes on a CUDA device (torch.profiler).
+"""Where the port's time goes on a CUDA device (torch.profiler).
 
-    python3 tools/profile_torch.py [--trace build/traces/torch_c2.json]
+    python3 tools/profile_torch.py [--trace build/traces/torch.json]
 
-Drives the same inputs as chip_smoke.py (a 1080p still, 128 copies on the
-card) and profiles its two stages separately: one ``detect_corners`` on
-frame 0, and one ``read_board_batch`` of the 128 frames. For each stage it
-prints the host wall time per call, the device kernel time, the device's
-busy share of the wall window, the number of kernels launched, and the top
-kernels by device time. Needs a CUDA device; exits 1 without one.
+Drives the same inputs as chip_smoke.py and profiles each stage on its
+own: the still path's ``detect_corners`` on a 1080p still and
+``read_board_batch`` of 128 copies of it; the recorded-video path's
+``sf_meta.read_batch`` of 128 720p game frames (c3); and the full
+redetect's ``detect_batch`` on 64 drifting 1080p frames, with its stage 1
+(``_detect_prepare_batch``) and one chunk's shared refine apart. For each
+stage it prints the host wall time per call, the device kernel time, the
+device's busy share of the wall window, the number of kernels launched,
+and the top kernels by device time. Needs a CUDA device; exits 1 without
+one.
 """
 
 from __future__ import annotations
@@ -86,6 +90,34 @@ def main() -> int:
     _profile("classify128",
              lambda: pipeline.read_board_batch(frames, corners), 5,
              args.trace)
+    del frames
+
+    from camkifu_tpu.config import cvconf
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import render_game, sample_moves
+
+    game, game_corners = render_game(
+        sample_moves(chip_smoke.FILM_MOVES, seed=5), cvconf.vote_window + 2,
+        frame_hw=chip_smoke.FILM_HW, empty_leadin=chip_smoke.FILM_LEADIN)
+    idx = torch.arange(chip_smoke.C3_BATCH) % game.shape[0]
+    c3 = torch.from_numpy(game)[idx].cuda()
+    c3_corners = torch.from_numpy(game_corners).cuda()
+    state = sf_meta.init_state(device=c3.device)
+    _profile("c3_read_batch128",
+             lambda: sf_meta.read_batch(state, c3, c3_corners), 3, args.trace)
+    del c3
+
+    drift, _ = chip_smoke._drift_frames(torch.device("cuda", 0))
+    _profile("redetect64", lambda: bf_auto.detect_batch(drift), 2, args.trace)
+    _profile("redetect64_stage1",
+             lambda: bf_auto._detect_prepare_batch(drift, 256), 3, args.trace)
+    grays, quads, _ = bf_auto._detect_prepare_batch(drift, 256)
+    chunk = bf_auto.SHARED_CHUNK
+    med = torch.quantile(quads[:chunk], 0.5, dim=0)
+    _profile("redetect_shared_refine_chunk8",
+             lambda: bf_auto._refine_shared_batch(grays[:chunk], med,
+                                                  quads[:chunk]),
+             3, args.trace)
     return 0
 
 
