@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from camkifu_tpu.config import cvconf
+from camkifu_tpu_torch.config import cvconf
 from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
 from camkifu_tpu_torch.ops.edges import edge_map_batch, percentile
 from camkifu_tpu_torch.ops.filters import edge_pad, sobel

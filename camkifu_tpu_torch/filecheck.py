@@ -7,8 +7,8 @@ camkifu_tpu/filecheck.py, with the SfMeta vote scan and no neural voter).
       → motion gate → vote scan) → stable labels (B, g, g)
     → host MoveExtractor → moves
 
-Batching and move extraction are the reference's host code, imported
-as they are (they use numpy only). Reading a video file needs cv2, so the
+Batching and move extraction are the reference's host code, copied into
+the port (``batched`` here, ``core.gamesync.MoveExtractor``). Reading a video file needs cv2, so the
 port takes frames from any iterator of (H, W, 3) uint8 arrays.
 """
 
@@ -19,20 +19,35 @@ import time
 import numpy as np
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
-from camkifu_tpu.core.gamesync import MoveExtractor
-from camkifu_tpu.filecheck import batched
 from camkifu_tpu_torch.board import bf_auto
+from camkifu_tpu_torch.config import cvconf, guiconf
+from camkifu_tpu_torch.core.gamesync import MoveExtractor
 from camkifu_tpu_torch.stone import sf_meta
+
+
+def batched(iterator, size: int):
+    """Group an iterator into (stacked ndarray, count) batches, padding the
+    tail by repeating the last frame (copied from camkifu_tpu/filecheck.py)."""
+    buf = []
+    for item in iterator:
+        buf.append(item)
+        if len(buf) == size:
+            yield np.stack(buf), size
+            buf = []
+    if buf:
+        n = len(buf)
+        while len(buf) < size:
+            buf.append(buf[-1])
+        yield np.stack(buf), n
 
 
 def run_pipeline(frames_iter, corners: np.ndarray | None = None,
                  batch: int = cvconf.frame_batch,
                  gsize: int = guiconf.gsize,
                  extractor: MoveExtractor | None = None,
-                 device="cpu"):
-    """Drive the pipeline over all frames on ``device``; return (extractor,
-    stats).
+                 device="cuda"):
+    """Drive the pipeline over all frames on ``device`` (the card unless
+    the caller asks for the CPU); return (extractor, stats).
 
     corners=None → automatic board detection, once, on the first batch
     (``detect_batch_stable``: a fixed camera); otherwise the fixed (4, 2)

@@ -11,7 +11,7 @@ import functools
 import numpy as np
 import torch
 
-from camkifu_tpu.config import cvconf
+from camkifu_tpu_torch.config import cvconf
 
 
 def downsample_luma(canonical_luma: torch.Tensor,

@@ -40,7 +40,8 @@ _SIGNATURES = {
     "camkifu_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "camkifu_edge": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_F), _P],
     "camkifu_edge_taps": [],
-    "camkifu_hough": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    "camkifu_hough": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                      _F, _P],
 }
 
 _lib: ctypes.CDLL | None = None

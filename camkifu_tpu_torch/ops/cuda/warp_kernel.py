@@ -1,17 +1,18 @@
-"""Homography warp on the card: one thread per output pixel, bilinear taps.
+"""Homography warp on the card: four output pixels a thread, bilinear taps.
 
 Replaces ``camkifu_tpu/ops/pallas/warp_kernel.py:warp_to_canonical_pallas``
 (which never lowered on Mosaic, so the TPU ran the XLA gather of
 ``camkifu_tpu/ops/warp.py:bilinear_sample``); the CUDA source is
 ``camkifu_tpu_torch/csrc/warp.cu``. It matches the exact bilinear sample,
-not the Pallas two-pass approximation.
+not the Pallas two-pass approximation, bit for bit.
 
-What bounds it on the card: device-memory bytes. Per output pixel it reads
-four C-byte uint8 taps, which neighbouring threads mostly share through the
-caches, and writes 4·C bytes of float32 — at 128 × 304² × 3 the writes are
-142 MB against ~4 taps × 3 B of frame per pixel. The design reads uint8
-taps straight from the frames (no float copy of a frame is ever made) and
-fuses the ×1/255 into the store.
+What bounds it on the card: device-memory bytes. Per output pixel it
+writes 4·C bytes of float32 and needs four C-byte uint8 taps — at 128 ×
+304² × 3, 142 MB each way. The design reads uint8 taps straight from the
+frames (no float copy of a frame is ever made), fetches a pixel's two taps
+in a source row as one or two aligned 8-byte words, computes four adjacent
+pixels per thread and stores them as aligned ``float4``s with the ×1/255
+fused in.
 
 Contract (both versions): (B, H, W, C) frames, one (3, 3) or (B, 3, 3)
 float32 homography mapping output (u, v) to frame (x, y) → (B, OH, OW, C)
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.cuda import _build
 from camkifu_tpu_torch.ops.warp import bilinear_sample, canonical_corners, \
     homography_dlt

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from camkifu_tpu.config import cvconf
+from camkifu_tpu_torch.config import cvconf
 
 
 def top_k(x: torch.Tensor, k: int):

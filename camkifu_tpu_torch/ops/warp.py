@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 
 
 def canonical_corners(gsize: int = guiconf.gsize,

@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.color import rgb_to_gray
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.warp import warp_batch_fixed
 from camkifu_tpu_torch.stone import sf_clustering
 

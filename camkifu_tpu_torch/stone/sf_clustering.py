@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.kmeans import kmeans
 from camkifu_tpu_torch.ops.zones import zone_stats
 

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.zones import disc_mask, zone_stats
 
 EMPTY, BLACK, WHITE = 0, 1, 2

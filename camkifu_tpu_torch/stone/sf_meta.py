@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from camkifu_tpu.config import cvconf, guiconf
+from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.ops.color import rgb_to_gray
 from camkifu_tpu_torch.ops.warp import warp_batch_fixed
@@ -50,7 +50,9 @@ _DTYPES = {"votes": torch.float32, "stable": torch.int8,
 
 
 def init_state(gsize: int = guiconf.gsize, zone: int = cvconf.zone_size,
-               device=None) -> MetaState:
+               device="cuda") -> MetaState:
+    """A fresh scan carry on ``device`` (the card unless the caller asks
+    for the CPU)."""
     s = gsize * zone // BG_FACTOR
     f32 = dict(dtype=torch.float32, device=device)
     return MetaState(
@@ -63,8 +65,8 @@ def init_state(gsize: int = guiconf.gsize, zone: int = cvconf.zone_size,
     )
 
 
-def meta_state_from_numpy(state, device=None) -> MetaState:
-    """A state from numpy-convertible arrays — a dict by field name or any
+def meta_state_from_numpy(state, device="cuda") -> MetaState:
+    """A state on ``device`` from numpy-convertible arrays — a dict by field name or any
     object with the fields as attributes (the reference's ``MetaState``)
     — so a scan started elsewhere continues here."""
     get = state.__getitem__ if isinstance(state, dict) else \

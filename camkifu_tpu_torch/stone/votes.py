@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from camkifu_tpu.config import cvconf
+from camkifu_tpu_torch.config import cvconf
 from camkifu_tpu_torch.ops import background
 
 

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from camkifu_tpu.gamemodel.move import B, W, Move
-from camkifu_tpu.gamemodel.rules import IllegalMove, RuleUnsafe
+from camkifu_tpu_torch.gamemodel.move import B, W, Move
+from camkifu_tpu_torch.gamemodel.rules import IllegalMove, RuleUnsafe
 
 WOOD = (193, 154, 107)
 LINE = (40, 30, 20)

@@ -14,6 +14,7 @@ import torch
 
 from camkifu_tpu.config import cvconf
 from camkifu_tpu.core.gamesync import MoveExtractor, score_moves
+from camkifu_tpu.gamemodel.move import Move
 from camkifu_tpu.ops import background as jbg
 from camkifu_tpu.ops.color import to_float
 from camkifu_tpu.ops.warp import warp_to_canonical
@@ -22,6 +23,7 @@ from camkifu_tpu.stone import sf_meta as jmeta
 from camkifu_tpu.stone import votes as jvotes
 from camkifu_tpu.utils import synth
 from camkifu_tpu_torch import filecheck
+from camkifu_tpu_torch.core import gamesync
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.stone import sf_contours, sf_meta, votes
 from camkifu_tpu_torch.utils import still
@@ -193,6 +195,12 @@ def test_sf_contours_matches_jax():
         assert (lab_t[i].numpy() == labels).mean() > 0.97
 
 
+def _as_jax(moves):
+    """The port's moves as the reference's (the two Move classes never
+    compare equal)."""
+    return [Move("np", (m.color, m.row, m.col)) for m in moves]
+
+
 @functools.lru_cache(maxsize=1)
 def _game():
     """A 12-move synthetic game (tests/test_sf_meta.py's), 360×640."""
@@ -236,7 +244,7 @@ def test_read_batch_two_batches_match_jax():
     batch padded after 5 frames: labels and stable equal, votes, bg and
     conf within 1e-4."""
     _, frames, corners = _game()
-    state_t = sf_meta.init_state()
+    state_t = sf_meta.init_state(device="cpu")
     for fb, n, state_j, lab_j, conf_j, agit_j in _jax_batches(
             jmeta.init_state(), frames, corners, [(32, 8), (40, 5)]):
         state_t, lab_t, conf_t, agit_t = sf_meta.read_batch(
@@ -257,7 +265,7 @@ def test_jax_state_continues_in_the_port():
     _, frames, corners = _game()
     runs = list(_jax_batches(jmeta.init_state(), frames, corners,
                              [(48, 8), (56, 8)]))
-    state_t = sf_meta.meta_state_from_numpy(runs[0][2])
+    state_t = sf_meta.meta_state_from_numpy(runs[0][2], "cpu")
     _same_state(state_t, runs[0][2], atol=0)
     fb, _, state_j, lab_j, conf_j, _ = runs[1]
     state_t, lab_t, conf_t, _ = sf_meta.read_batch(state_t, _t(fb),
@@ -276,7 +284,7 @@ def test_state_surgery_matches_jax():
     state_j = jmeta.init_state()._replace(
         votes=jnp.asarray(rng.random((19, 19, 3), np.float32)),
         stable=jnp.asarray(rng.integers(0, 3, (19, 19)).astype(np.int8)))
-    state_t = sf_meta.meta_state_from_numpy(state_j._asdict())
+    state_t = sf_meta.meta_state_from_numpy(state_j._asdict(), "cpu")
     _same_state(sf_meta.reset_votes(state_t, [(3, 3), (0, 18)]),
                 jmeta.reset_votes(state_j, [(3, 3), (0, 18)]), atol=0)
     board = rng.integers(0, 3, (19, 19)).astype(np.int8)
@@ -286,7 +294,7 @@ def test_state_surgery_matches_jax():
 
 
 def test_read_batch_refuses_what_is_not_ported():
-    state = sf_meta.init_state()
+    state = sf_meta.init_state(device="cpu")
     frames = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="tracking"):
         sf_meta.read_batch(state, frames, torch.zeros((2, 4, 2)))
@@ -299,9 +307,10 @@ def test_run_pipeline_reads_the_game():
     """tests/test_sf_meta.py's 12-move game through the port's recorded-
     video path, with automatic board detection: agreement 1.0."""
     moves, frames, corners = _game()
-    ex, stats = filecheck.run_pipeline(iter(frames), corners=None, batch=16)
-    assert isinstance(ex, MoveExtractor)
-    assert score_moves(ex.moves, moves)["agreement"] == 1.0
+    ex, stats = filecheck.run_pipeline(iter(frames), corners=None, batch=16,
+                                       device="cpu")
+    assert isinstance(ex, gamesync.MoveExtractor)
+    assert score_moves(_as_jax(ex.moves), moves)["agreement"] == 1.0
     assert stats["frames"] == len(frames)
     assert np.abs(np.array(stats["corners"]) - corners).max() < 5.5
 
@@ -310,7 +319,7 @@ def test_numpy_game_renderer_reads_through_jax():
     """The smoke run's numpy-only game: its sampler is the reference's,
     and the JAX package reads the rendered game to the same kifu."""
     moves = still.sample_moves(10, seed=5)
-    assert moves == synth.sample_moves(10, seed=5)
+    assert _as_jax(moves) == synth.sample_moves(10, seed=5)
     states = list(still.game_states(moves))
     assert np.array_equal(states[-1], list(synth.game_states(moves))[-1][0])
     frames, corners = still.render_game(moves, cvconf.vote_window + 2,
@@ -325,4 +334,4 @@ def test_numpy_game_renderer_reads_through_jax():
                                  valid_count=jnp.int32(8))
         for lab in np.asarray(labels):
             ex.advance(lab)
-    assert score_moves(ex.moves, moves)["agreement"] == 1.0
+    assert score_moves(ex.moves, _as_jax(moves))["agreement"] == 1.0

@@ -152,3 +152,103 @@ def test_kernels_count_launches():
     after = (warp_kernel.launches, edge_kernel.launches,
              hough_kernel.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def _line_points(b: int, k: int = 4096, seed: int = 2):
+    """(b, k, 2) points of which most lie on 38 board lines (19 each way,
+    so ~100 points share each line's bin at its θ), the rest scattered,
+    and (b, k) weights with every ninth zero."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 256, (b, k, 2)).astype(np.float32)
+    on = int(k * 0.9)
+    line = rng.integers(0, 38, (b, on))
+    pos = (20.0 + 12.0 * (line % 19)).astype(np.float32)
+    along = rng.uniform(20, 236, (b, on)).astype(np.float32)
+    vertical = line < 19
+    pts[:, :on, 0] = np.where(vertical, pos, along)
+    pts[:, :on, 1] = np.where(vertical, along, pos)
+    wts = rng.uniform(0.5, 2, (b, k)).astype(np.float32)
+    wts[:, ::9] = 0
+    return torch.from_numpy(pts), torch.from_numpy(wts)
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_hough_kernel_line_heavy_matches_plain(b):
+    """Points crowded on a board's lines, so many votes share a bin, at
+    the still (B = 1), film (B = 8) and redetect (B = 64) batches: on an
+    H100 the first two split each frame's points across blocks, the
+    redetect's does not."""
+    dev = _device()
+    pts, wts = _line_points(b)
+    pts, wts = pts.to(dev), wts.to(dev)
+    rho_max = float(np.hypot(256, 256))
+    splits = hough_kernel.auto_splits(b, 4096, 128, dev)
+    assert (splits > 1) == (b < 64)
+    ref = hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128, 256)
+    ours = hough_kernel.hough_accumulate(pts, wts, rho_max, 128, 256)
+    torch.cuda.synchronize()
+    assert float((ours - ref).abs().max()) <= 1e-2
+    assert float(ref.max()) > 50.0          # the lines did pile up
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_hough_kernel_wide_weights_keep_float32_precision(b):
+    """Weights spread from 1e-4 to 1e2: every bin within float32 rounding
+    of the plain version, relative to the magnitude of the votes it sums
+    (the plain version on |weights|), with and without a split."""
+    dev = _device()
+    pts, _ = _line_points(b)
+    rng = np.random.default_rng(3)
+    wts = torch.from_numpy(
+        (10.0 ** rng.uniform(-4, 2, (b, 4096))).astype(np.float32))
+    pts, wts = pts.to(dev), wts.to(dev)
+    rho_max = float(np.hypot(256, 256))
+    ref = hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128, 256)
+    mag = hough_kernel.hough_accumulate_ref(pts, wts.abs(), rho_max, 128, 256)
+    ours = hough_kernel.hough_accumulate(pts, wts, rho_max, 128, 256)
+    torch.cuda.synchronize()
+    assert bool(((ours - ref).abs() <= 1e-5 * mag + 1e-9).all())
+    # Signed weights add as they do in the plain version.
+    wts[:, ::2] *= -1
+    ref = hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128, 256)
+    ours = hough_kernel.hough_accumulate(pts, wts, rho_max, 128, 256)
+    torch.cuda.synchronize()
+    assert bool(((ours - ref).abs() <= 1e-5 * mag + 1e-9).all())
+
+
+def test_hough_kernel_odd_rows_and_bins():
+    """θ rows and ρ bins that are not multiples of 32, split (B = 3) and
+    not (B = 64 at 100 rows, on an H100), and the widest n_ρ."""
+    dev = _device()
+    seen = set()
+    for b, n_theta, n_rho in ((3, 45, 100), (3, 7, 33), (64, 100, 100),
+                              (2, 40, hough_kernel.MAX_RHOS)):
+        pts, wts = _line_points(b, k=1000)
+        pts, wts = pts.to(dev), wts.to(dev)
+        seen.add(hough_kernel.auto_splits(b, 1000, n_theta, dev) > 1)
+        ref = hough_kernel.hough_accumulate_ref(pts, wts, 300.0, n_theta,
+                                                n_rho)
+        ours = hough_kernel.hough_accumulate(pts, wts, 300.0, n_theta, n_rho)
+        torch.cuda.synchronize()
+        assert float((ours - ref).abs().max()) <= 1e-2
+    assert seen == {False, True}
+    with pytest.raises(ValueError):
+        hough_kernel.hough_accumulate(pts, wts, 300.0, 8,
+                                      hough_kernel.MAX_RHOS + 1)
+
+
+@pytest.mark.parametrize("c, out_hw", [(3, (301, 303)), (1, (320, 320)),
+                                       (1, (97, 61)), (2, (50, 77))])
+def test_warp_kernel_bitwise_at_odd_shapes(c, out_hw):
+    """Odd output widths (the ragged end and rows that are not 16-byte
+    aligned store float by float), one channel, and a channel count the
+    word loads do not take: bitwise equal to the plain version."""
+    dev = _device()
+    frames = _frames(dev, n=3, hw=(719, 1277))[..., :c].contiguous()
+    corners = torch.from_numpy(default_corners((719, 1277))).to(dev)
+    H = homography_dlt(canonical_corners(device=dev), corners)
+    for hm in (H, H.expand(3, 3, 3).contiguous()):
+        ours = warp_kernel.warp_homography(frames, hm, out_hw, 1 / 255)
+        ref = warp_kernel.warp_homography_ref(frames, hm, out_hw, 1 / 255)
+        torch.cuda.synchronize()
+        assert torch.equal(ours, ref)

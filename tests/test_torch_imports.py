@@ -1,5 +1,5 @@
-"""The port and its smoke script import without JAX, and the smoke script
-refuses to run without a CUDA device."""
+"""The port and its smoke script import without JAX and without the JAX
+package, and the smoke script refuses to run without a CUDA device."""
 
 import os
 import subprocess
@@ -13,10 +13,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "camkifu_tpu_torch",
+    "camkifu_tpu_torch.config",
+    "camkifu_tpu_torch.config.cvconf",
+    "camkifu_tpu_torch.config.guiconf",
+    "camkifu_tpu_torch.gamemodel",
+    "camkifu_tpu_torch.gamemodel.move",
+    "camkifu_tpu_torch.gamemodel.rules",
+    "camkifu_tpu_torch.core",
+    "camkifu_tpu_torch.core.gamesync",
     "camkifu_tpu_torch.pipeline",
     "camkifu_tpu_torch.filecheck",
     "camkifu_tpu_torch.board.bf_auto",
     "camkifu_tpu_torch.ops.background",
+    "camkifu_tpu_torch.ops.hough",
+    "camkifu_tpu_torch.ops.warp",
+    "camkifu_tpu_torch.ops.zones",
     "camkifu_tpu_torch.stone.sf_clustering",
     "camkifu_tpu_torch.stone.sf_contours",
     "camkifu_tpu_torch.stone.sf_meta",
@@ -37,15 +48,17 @@ def _python(code: str, cwd: str):
 
 
 def test_port_imports_without_jax_or_cv2():
+    """With jax, cv2 and the whole JAX package blocked, every module of the
+    port imports, and none of them is loaded afterwards."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['cv2'] = None\n"
+            "sys.modules['camkifu_tpu'] = None\n"
             "import importlib\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
-            "bad = [m for m in sys.modules if m.startswith(('jax', 'cv2',"
-            " 'camkifu_tpu.utils', 'camkifu_tpu.ops'))"
-            " and sys.modules[m] is not None]\n"
+            "bad = [m for m in sys.modules if (m.split('.')[0] in"
+            " ('jax', 'cv2', 'camkifu_tpu')) and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = _python(code, ROOT)

@@ -92,7 +92,7 @@ def main() -> int:
              args.trace)
     del frames
 
-    from camkifu_tpu.config import cvconf
+    from camkifu_tpu_torch.config import cvconf
     from camkifu_tpu_torch.stone import sf_meta
     from camkifu_tpu_torch.utils.still import render_game, sample_moves
 
