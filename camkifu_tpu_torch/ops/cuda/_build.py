@@ -22,7 +22,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("warp.cu", "edge.cu", "hough.cu")
+SOURCES = ("warp.cu", "edge.cu", "hough.cu", "hysteresis.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "camkifu_kernels"
 
@@ -38,8 +38,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "camkifu_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "camkifu_edge": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_F), _P],
+    "camkifu_edge": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_F),
+                     _P],
     "camkifu_edge_taps": [],
+    "camkifu_edge_strip": [_I],
+    "camkifu_hysteresis": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _I, _P],
     "camkifu_hough": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _P],
 }

@@ -1,9 +1,10 @@
 """Edge detection: Sobel magnitude + non-maximum suppression + hysteresis
 (port of camkifu_tpu/ops/edges.py).
 
-``edge_map`` and ``edge_map_batch`` take the fused edge kernel on a CUDA
-tensor and the plain blur/Sobel/NMS path on the CPU, as the reference takes
-its Pallas kernel on its accelerator and the XLA path elsewhere.
+``edge_map`` and ``edge_map_batch`` take the fused edge kernel and the
+hysteresis kernel on a CUDA tensor and the plain paths on the CPU, as the
+reference takes its Pallas kernel on its accelerator and the XLA path
+elsewhere.
 """
 
 from __future__ import annotations
@@ -11,7 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from camkifu_tpu_torch.ops.cuda import hysteresis_kernel
 from camkifu_tpu_torch.ops.filters import gaussian_blur, sobel
+
+#: Double threshold + fixed-iteration strong-edge propagation, plain
+#: version (any device); ``edge_map_batch`` takes the kernel on the card.
+hysteresis = hysteresis_kernel.hysteresis_ref
 
 
 def _shift2(img, dy, dx):
@@ -41,23 +47,6 @@ def nms_magnitude(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, mag, 0.0)
 
 
-def hysteresis(mag: torch.Tensor, low, high, iters: int = 8) -> torch.Tensor:
-    """Double threshold + fixed-iteration strong-edge propagation: weak
-    pixels survive if connected (8-neighborhood) to strong ones within
-    ``iters`` dilation steps."""
-    strong = mag >= high
-    weak = mag >= low
-    reach = strong
-    for _ in range(iters):
-        dil = reach
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                if dy or dx:
-                    dil = dil | _shift2(reach, dy, dx)
-        reach = dil & weak
-    return torch.where(reach | strong, mag, 0.0)
-
-
 def percentile(x: torch.Tensor, q: float, dim: int | None = None
                ) -> torch.Tensor:
     """``jnp.percentile(x, q)`` (linear interpolation): over all elements,
@@ -82,19 +71,23 @@ def edge_map_batch(grays: torch.Tensor, sigma: float = 1.4,
     """``edge_map`` over a batch: (N, H, W) gray in [0, 1] → (N, H, W).
 
     On a CUDA tensor blur+Sobel+NMS run as the fused kernel, one launch for
-    all N, which zeroes an 8-px border band; on the CPU they run as plain
-    tensor ops with edge padding and no band, the route the reference takes
-    off the TPU. Thresholds are fractions of each frame's own 99.5th
-    percentile of a 2×-strided view; hysteresis runs on the whole batch.
+    all N, which zeroes an 8-px border band, and the hysteresis as one more
+    launch; on the CPU both run as plain tensor ops, with edge padding and
+    no band, the route the reference takes off the TPU. Thresholds are
+    fractions of each frame's own 99.5th percentile of a 2×-strided view,
+    read on the device; the kernel takes at most
+    ``hysteresis_kernel.MAX_ITERS`` steps.
     """
     if grays.is_cuda:
         from camkifu_tpu_torch.ops.cuda.edge_kernel import edge_magnitude
 
         mags = edge_magnitude(grays.contiguous(), sigma=sigma)
+        hyst = hysteresis_kernel.hysteresis
     else:
         gx, gy = sobel(gaussian_blur(grays, sigma))
         mags = nms_magnitude(gx, gy)
+        hyst = hysteresis_kernel.hysteresis_ref
     n = mags.shape[0]
     ref = percentile(mags[:, ::2, ::2].reshape(n, -1), 99.5, dim=1)
     ref = ref[:, None, None]
-    return hysteresis(mags, low_frac * ref, high_frac * ref, hysteresis_iters)
+    return hyst(mags, low_frac * ref, high_frac * ref, hysteresis_iters)

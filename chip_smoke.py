@@ -42,8 +42,6 @@ FRAME_HW = (1080, 1920)
 TOL_PX = 16.0
 #: Corner agreement between the card and the plain CPU path.
 TOL_CPU_PX = 0.5
-EDGE_ATOL = 1e-4           # where both versions fire
-EDGE_SUPPORT = 0.995       # intersection over union of the NMS supports
 HOUGH_ATOL = 1e-2          # fixed-point votes, summed in another order
 #: Device spin before each kernel timing, ~50 ms at the H100's clock:
 #: longer than the host takes to fill the launch queue.
@@ -62,11 +60,18 @@ PEAK_FP32_S = 67e12
 #: map per pixel (9-tap blur twice, 34; Sobel, 11; magnitude and sqrt, 4;
 #: sector and NMS compares, 6); the Hough vote per (point, θ) pair with a
 #: non-zero weight (ρ 3, bin position 2, floor and fraction 2, 1 − frac 1,
-#: two weighted taps 2, two adds 2).
+#: two weighted taps 2, two adds 2); the hysteresis per pixel (two
+#: threshold compares and the last select; its dilations are bit operations).
 WARP_OPS_PX = 16
 WARP_OPS_VALUE = 11
 EDGE_OPS_PX = 55
 HOUGH_OPS_PAIR = 12
+HYSTERESIS_OPS_PX = 3
+#: Dilation steps of the paths' hysteresis (``edge_map_batch``'s default)
+#: and the fractions of each map's strided 99.5th percentile it thresholds
+#: at.
+HYSTERESIS_ITERS = 4
+LOW_FRAC, HIGH_FRAC = 0.15, 0.4
 #: Calls per kernel time: the kernel, its plain version, the library call.
 KERNEL_REPS = 20
 PLAIN_REPS = 3
@@ -74,6 +79,10 @@ LIBRARY_REPS = 5
 #: Split counts the Hough kernel is also timed at, beside the one its
 #: wrapper picks (``hough_kernel.auto_splits``).
 HOUGH_SPLITS = (1, 2, 4, 8, 16, 32)
+#: Segment lengths (output rows a warp walks) the edge kernel is also timed
+#: at with each strip width, beside the pair its wrapper picks
+#: (``edge_kernel.auto_plan``).
+EDGE_ROWS = (1, 2, 4, 8, 16, 32, 64, 256)
 
 #: The recorded game: moves, empty lead-in frames, frames per move (the
 #: vote window + 2, as tests/test_sf_meta.py records), and the film batch.
@@ -189,6 +198,13 @@ def bound_hough(pts, wts, n_theta: int = 128,
     return _bound(nbytes, HOUGH_OPS_PAIR * n_theta * int((wts != 0).sum()))
 
 
+def bound_hysteresis(x) -> tuple[float, str]:
+    """float32 maps read once and written once, and a pair of thresholds a
+    map."""
+    return _bound(8 * x.numel() + 8 * x.shape[0],
+                  HYSTERESIS_OPS_PX * x.numel())
+
+
 def warp_sector_bytes(frames, H, out_hw: tuple[int, int]) -> int:
     """Bytes of the distinct 32-byte sectors that the taps of a warp
     through one homography ``H`` touch, summed over the frames, plus its
@@ -236,6 +252,24 @@ def hough_at_splits(pts, wts, rho_max: float, splits: int):
         pos_hi, stream), "hough")
 
 
+def edge_at(x, cols: int, rows: int):
+    """The edge kernel's C entry point on maps ``x`` (N, H, W) with strips
+    of ``cols`` columns a lane and ``rows`` output rows a segment; returns
+    the call. Launched here, not through the wrapper, so it counts no
+    launch."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import _build, edge_kernel
+
+    n, h, w = x.shape
+    out = torch.empty_like(x)
+    lib, taps = edge_kernel._ready(1.4)
+    stream = _build.stream_handle(x.device)
+    return lambda: _build.check(lib.camkifu_edge(
+        x.data_ptr(), out.data_ptr(), n, h, w, edge_kernel.BORDER, cols, rows,
+        taps, stream), "edge")
+
+
 def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float):
     """The library yardstick of the warp: ``F.grid_sample`` (bilinear,
     border padding, align_corners) on the frames as float32 NCHW, through
@@ -273,9 +307,10 @@ def _labels() -> "np.ndarray":
 
 def _kernel_modules() -> dict:
     from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
-        warp_kernel
+        hysteresis_kernel, warp_kernel
 
-    return {"warp": warp_kernel, "edge": edge_kernel, "hough": hough_kernel}
+    return {"warp": warp_kernel, "edge": edge_kernel, "hough": hough_kernel,
+            "hysteresis": hysteresis_kernel}
 
 
 def _reset_counts() -> None:
@@ -294,6 +329,9 @@ def _read_counts() -> dict:
 def _require_launched(counts: dict, path: str) -> None:
     for name, (n, _) in counts.items():
         _require(n > 0, f"the {name} kernel did not run on the {path} path")
+    _require(counts["hysteresis"] == counts["edge"],
+             f"the hysteresis kernel did not follow every edge launch on the "
+             f"{path} path")
 
 
 def phase_build(_build) -> None:
@@ -331,8 +369,8 @@ def _check_warp(frames, H, out_hw: tuple[int, int], label: str) -> float:
 
 def _check_edge(x, label: str) -> float:
     """The edge kernel against its plain version on maps ``x`` (N, H, W):
-    equal where both fire, the same NMS support, a zero border band.
-    Returns the largest difference."""
+    bitwise equal in the interior, a zero border band. Returns the largest
+    difference."""
     import torch
 
     from camkifu_tpu_torch.ops.cuda import edge_kernel
@@ -342,20 +380,97 @@ def _check_edge(x, label: str) -> float:
     b = edge_kernel.edge_magnitude_ref(x)
     torch.cuda.synchronize()
     inner = (slice(None), slice(BORDER, -BORDER), slice(BORDER, -BORDER))
-    sa, sb = a[inner] > 0, b[inner] > 0
-    both = sa & sb
-    iou = float(both.sum()) / max(float((sa | sb).sum()), 1.0)
-    err = float((a[inner] - b[inner])[both].abs().max())
+    same = torch.equal(a[inner], b[inner])
+    err = float((a[inner] - b[inner]).abs().max())
+    differ = int((a[inner] != b[inner]).sum())
     band = a.clone()
     band[inner] = 0
-    print(f"kernel edge{label}: max|kernel - plain| = {err:.3g} where both "
-          f"fire (atol {EDGE_ATOL}), support IoU {iou:.5f}, band max "
+    print(f"kernel edge{label}: max|kernel - plain| = {err:.3g} in the "
+          f"interior, {differ} of {a[inner].numel()} pixels differ, "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'}, "
+          f"{int((a[inner] > 0).sum())} edge pixels, band max "
           f"{float(band.abs().max())}", flush=True)
-    _require(err <= EDGE_ATOL, f"edge kernel{label} disagrees")
-    _require(iou >= EDGE_SUPPORT, f"edge kernel{label} NMS support disagrees")
+    _require(same, f"edge kernel{label} is not bitwise equal to its plain "
+             f"version in the interior")
     _require(float(band.abs().max()) == 0.0,
              f"edge kernel{label} band is not 0")
     return err
+
+
+def _thresholds(mags):
+    """The paths' per-map thresholds, as ``edge_map_batch`` makes them:
+    (N, 1, 1) fractions of each map's strided 99.5th percentile."""
+    from camkifu_tpu_torch.ops.edges import percentile
+
+    n = mags.shape[0]
+    ref = percentile(mags[:, ::2, ::2].reshape(n, -1), 99.5, dim=1)
+    ref = ref[:, None, None]
+    return LOW_FRAC * ref, HIGH_FRAC * ref
+
+
+def _check_hysteresis(mags, low, high, label: str) -> float:
+    """The hysteresis kernel against its plain version on maps ``mags``
+    (N, H, W): ``torch.equal``. Returns the largest difference."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import hysteresis_kernel
+
+    a = hysteresis_kernel.hysteresis(mags, low, high, HYSTERESIS_ITERS)
+    b = hysteresis_kernel.hysteresis_ref(mags, low, high, HYSTERESIS_ITERS)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    err = float((a - b).abs().max())
+    strong = int((mags >= high).sum())
+    print(f"kernel hysteresis{label}: {tuple(mags.shape)}, "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'}, "
+          f"{int((a > 0).sum())} pixels kept of {int((mags >= low).sum())} "
+          f"weak ({strong} strong)", flush=True)
+    _require(same, f"hysteresis kernel{label} is not equal to its plain "
+             f"version")
+    return err
+
+
+def _check_hysteresis_wrap(dev) -> None:
+    """A map whose only strong pixel sits on row 0, with weak pixels on
+    the last rows and, past column 0, in the last column: every one of them
+    hangs on it around the image's edges within the paths' 4 steps."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import hysteresis_kernel
+
+    mags = torch.zeros((1, 256, 256), device=dev)
+    mags[0, 0, 2] = 0.9
+    mags[0, -3:, 0:5] = 0.5
+    mags[0, 0, 0:2] = 0.5
+    mags[0, 0:2, -1] = 0.5
+    _check_hysteresis(mags, 0.3, 0.8, " (wrap)")
+    out = hysteresis_kernel.hysteresis(mags, 0.3, 0.8, HYSTERESIS_ITERS)
+    _require(bool(((out > 0) == (mags > 0)).all()),
+             "hysteresis did not reach around the image's edges")
+
+
+def _edge_cases(x, path: str, label: str, main: bool = False) -> list[dict]:
+    """The edge and the hysteresis kernel at one path's maps ``x``: the
+    hysteresis on the edge kernel's magnitudes and their own thresholds."""
+    from camkifu_tpu_torch.ops.cuda import edge_kernel, hysteresis_kernel
+
+    cases = [_case(
+        "edge", f"N = {x.shape[0]}, 256²", path,
+        lambda: edge_kernel.edge_magnitude(x),
+        lambda: edge_kernel.edge_magnitude_ref(x),
+        _check_edge(x, label), bound_edge(x), main=main, rows=x)]
+    mags = edge_kernel.edge_magnitude(x)
+    low, high = _thresholds(mags)
+    cases.append(_case(
+        "hysteresis", f"N = {x.shape[0]}, 256², {HYSTERESIS_ITERS} steps",
+        path,
+        lambda: hysteresis_kernel.hysteresis(mags, low, high,
+                                             HYSTERESIS_ITERS),
+        lambda: hysteresis_kernel.hysteresis_ref(mags, low, high,
+                                                 HYSTERESIS_ITERS),
+        _check_hysteresis(mags, low, high, label), bound_hysteresis(mags),
+        main=main))
+    return cases
 
 
 def _check_hough(pts, wts, rho_max: float, label: str) -> float:
@@ -394,8 +509,7 @@ def phase_kernels(frames, corners) -> list[dict]:
     from camkifu_tpu_torch.board.bf_auto import (REFINE_RES, _rect_H,
                                                   resize_bilinear)
     from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
-    from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
-        warp_kernel
+    from camkifu_tpu_torch.ops.cuda import hough_kernel, warp_kernel
     from camkifu_tpu_torch.ops.edges import edge_map
     from camkifu_tpu_torch.ops.hough import topk_edge_points
     from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
@@ -430,11 +544,8 @@ def phase_kernels(frames, corners) -> list[dict]:
     chroma = resize_bilinear((f0[..., 0].float() - f0[..., 2].float())
                              / 255.0, (256, 256))
     x = torch.stack([small, chroma]).contiguous()
-    cases.append(_case(
-        "edge", f"N = {x.shape[0]}, 256²", "still",
-        lambda: edge_kernel.edge_magnitude(x),
-        lambda: edge_kernel.edge_magnitude_ref(x),
-        _check_edge(x, ""), bound_edge(x), main=True))
+    cases += _edge_cases(x, "still", "", main=True)
+    _check_hysteresis_wrap(frames.device)
 
     # Hough: K = 4096 edge points of the luma map, 128 × 256 bins.
     pts, wts = topk_edge_points(edge_map(small))
@@ -669,8 +780,7 @@ def phase_batch_kernels(redetect: dict, film: dict, dev) -> list[dict]:
     from camkifu_tpu_torch.board.bf_auto import (REFINE_RES, SHARED_CHUNK,
                                                   _rect_H, resize_bilinear)
     from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
-    from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
-        warp_kernel
+    from camkifu_tpu_torch.ops.cuda import hough_kernel, warp_kernel
     from camkifu_tpu_torch.ops.edges import edge_map_batch
     from camkifu_tpu_torch.ops.hough import topk_edge_points
     from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
@@ -708,12 +818,7 @@ def phase_batch_kernels(redetect: dict, film: dict, dev) -> list[dict]:
     n_film = FILM_DETECT_FRAMES
     for x, path in ((torch.cat([small[:n_film], chroma[:n_film]]), "film"),
                     (torch.cat([small, chroma]), "redetect")):
-        x = x.contiguous()
-        cases.append(_case(
-            "edge", f"N = {x.shape[0]}, 256²", path,
-            lambda x=x: edge_kernel.edge_magnitude(x),
-            lambda x=x: edge_kernel.edge_magnitude_ref(x),
-            _check_edge(x, f" at N = {x.shape[0]}"), bound_edge(x)))
+        cases += _edge_cases(x.contiguous(), path, f" at N = {x.shape[0]}")
 
     pts_all, wts_all = topk_edge_points(edge_map_batch(small))
     rho_max = float(256 * 2 ** 0.5)
@@ -742,6 +847,22 @@ def _split_sweep(pts, wts, rho_max: float) -> str:
              for s in HOUGH_SPLITS if s <= k // 64}
     return f"; by splits (auto {auto}): " + ", ".join(
         f"{s} {t:.4f}" for s, t in times.items())
+
+
+def _rows_sweep(x) -> str:
+    """The edge kernel's ms with each strip width at each of ``EDGE_ROWS``
+    rows a segment, beside the pair its wrapper picks, as text."""
+    from camkifu_tpu_torch.ops.cuda import edge_kernel
+
+    n, h, w = x.shape
+    auto = edge_kernel.auto_plan(n, h, w, x.device)
+    text = f"; by (columns a lane, rows a segment), auto {auto}"
+    for cols in edge_kernel.STRIPS:
+        times = {r: _cuda_ms(edge_at(x, cols, r), KERNEL_REPS)
+                 for r in EDGE_ROWS if r <= h}
+        text += f": {cols} columns " + ", ".join(
+            f"{r} {t:.4f}" for r, t in times.items())
+    return text
 
 
 def phase_kernel_times(cases: list[dict], card: str) -> None:
@@ -773,6 +894,8 @@ def phase_kernel_times(cases: list[dict], card: str) -> None:
             extra += f"; whole-sector floor {c['sector_floor_ms']:.4f} ms"
         if "splits" in c:
             extra += _split_sweep(*c["splits"])
+        if "rows" in c:
+            extra += _rows_sweep(c["rows"])
         lib = ("" if c["library_ms"] is None else
                f", library {c['library_ms']:.4f} ms")
         print(f"time {c['name']} {c['shape']} ({c['path']}): kernel "
@@ -826,6 +949,9 @@ SOURCES = {
              "camkifu_tpu/ops/pallas/edge_kernel.py:111 and :125"),
     "hough": ("camkifu_tpu_torch/csrc/hough.cu",
               "camkifu_tpu/ops/pallas/hough_kernel.py:67"),
+    "hysteresis": ("camkifu_tpu_torch/csrc/hysteresis.cu",
+                   "camkifu_tpu/ops/edges.py:50 hysteresis (XLA ops, no "
+                   "Pallas kernel)"),
 }
 
 

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, warp_kernel
+from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
+    hysteresis_kernel, warp_kernel
 from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
 from camkifu_tpu_torch.utils.still import default_corners, render_still
 
@@ -138,6 +139,166 @@ def test_hough_kernel_batch_matches_plain():
     assert float((ours - ref).abs().max()) <= 1e-2
     single = hough_kernel.hough_accumulate(pts[5], wts[5], rho_max, 128, 256)
     assert float((single - ours[5]).abs().max()) <= 1e-2
+
+
+def _edge_input(shape, seed):
+    """Noise with a step edge in every third map (or in a lone map)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(shape, generator=gen)
+    step = (torch.linspace(0, 1, shape[-1]) > 0.3).float()
+    if len(shape) == 3:
+        x[::3] = 0.8 * step + 0.2 * x[::3]
+    else:
+        x = 0.8 * step + 0.2 * x
+    return x
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 256, 256), (2, 256, 256), (16, 256, 256), (128, 256, 256), (70, 45),
+    (3, 17, 300), (2, 300, 17), (2, 40, 500), (3, 64, 257), (2, 15, 64),
+    (2, 64, 12), (1, 16, 16)])
+def test_edge_kernel_bitwise_equal_to_plain(shape):
+    """The path's batches, shapes that no strip or segment divides, rows
+    that are not 16-byte aligned, a width of more than two strips, and maps
+    under 2 * BORDER a side (all zeros): ``torch.equal`` in the interior,
+    zeros in the band, one launch."""
+    dev = _device()
+    x = _edge_input(shape, seed=len(shape) * 1000 + shape[-1]).to(dev)
+    before = edge_kernel.launches
+    ours = edge_kernel.edge_magnitude(x)
+    assert edge_kernel.launches == before + 1
+    ref = edge_kernel.edge_magnitude_ref(x)
+    torch.cuda.synchronize()
+    assert ours.shape == x.shape
+    assert torch.equal(ours, ref)
+    b = edge_kernel.BORDER
+    if min(shape[-2:]) > 2 * b:
+        assert float(ours[..., b:-b, b:-b].max()) > 0.0
+    else:
+        assert float(ours.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("cols", [4, 8])
+def test_edge_kernel_strip_widths_and_segment_lengths_agree(cols):
+    """Both strip widths at every segment length give the plain version's
+    map: the C entry point at 1 to H rows a segment, on a map wider than
+    two narrow strips, and on rows that start off 16-byte boundaries."""
+    dev = _device()
+    from camkifu_tpu_torch.ops.cuda import _build
+
+    x = _edge_input((3, 100, 260), seed=5).to(dev)
+    ref = edge_kernel.edge_magnitude_ref(x)
+    assert torch.equal(edge_kernel.edge_magnitude(x), ref)
+    lib, taps = edge_kernel._ready(1.4)
+    y = torch.zeros(3 * 100 * 260 + 1, device=dev)[1:].view(3, 100, 260)
+    y.copy_(x)
+    for rows in (1, 3, 4, 13, 64, 99, 100, 1000):
+        for src in (x, y):
+            out = torch.full_like(x, -1.0)
+            _build.check(lib.camkifu_edge(
+                src.data_ptr(), out.data_ptr(), 3, 100, 260,
+                edge_kernel.BORDER, cols, rows, taps,
+                _build.stream_handle(dev)), "edge")
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), rows
+    z = _edge_input((2, 40, 1000), seed=6).to(dev)
+    out = torch.empty_like(z)
+    _build.check(lib.camkifu_edge(
+        z.data_ptr(), out.data_ptr(), 2, 40, 1000, edge_kernel.BORDER, cols,
+        7, taps, _build.stream_handle(dev)), "edge")
+    assert torch.equal(out, edge_kernel.edge_magnitude_ref(z))
+
+
+def test_edge_kernel_plan_follows_the_batch():
+    """Narrow strips and short segments for a pair of maps, wide strips and
+    long segments for the redetect's 128 (on an H100's 132 SMs)."""
+    dev = _device()
+    plans = [edge_kernel.auto_plan(n, 256, 256, dev) for n in (2, 16, 128)]
+    assert [p[0] for p in plans] == [4, 8, 8]
+    assert plans[0][1] <= plans[1][1] <= plans[2][1]
+    assert all(1 <= rows <= 256 for _, rows in plans)
+
+
+def _hysteresis_input(shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    mag = torch.rand(shape, generator=gen)
+    return mag * (torch.rand(shape, generator=gen) < 0.45)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4, 8])
+@pytest.mark.parametrize("shape", [
+    (1, 256, 256), (2, 256, 256), (16, 256, 256), (128, 256, 256), (70, 45),
+    (3, 17, 300), (2, 300, 17), (2, 40, 500), (2, 5, 3)])
+def test_hysteresis_kernel_equals_plain(shape, iters):
+    """``torch.equal`` with the plain version at the path's batches and at
+    shapes that no tile divides or that the halo wraps around, thresholds
+    as floats and as one pair a map on the device; one launch."""
+    dev = _device()
+    mag = _hysteresis_input(shape, seed=shape[-1] + iters).to(dev)
+    before = hysteresis_kernel.launches
+    ours = hysteresis_kernel.hysteresis(mag, 0.3, 0.8, iters)
+    assert hysteresis_kernel.launches == before + 1
+    ref = hysteresis_kernel.hysteresis_ref(mag, 0.3, 0.8, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, ref)
+    if ours.numel() > 1000:
+        assert 0 < int((ours > 0).sum()) < ours.numel()
+    if len(shape) == 3:
+        n = shape[0]
+        low = torch.linspace(0.2, 0.45, n, device=dev)[:, None, None]
+        high = torch.linspace(0.95, 0.6, n, device=dev)[:, None, None]
+        ours = hysteresis_kernel.hysteresis(mag, low, high, iters)
+        ref = hysteresis_kernel.hysteresis_ref(mag, low, high, iters)
+        assert torch.equal(ours, ref)
+        # One tensor for all maps, and a float beside a tensor.
+        ours = hysteresis_kernel.hysteresis(mag, low[0], 0.8, iters)
+        ref = hysteresis_kernel.hysteresis_ref(mag, low[0], 0.8, iters)
+        assert torch.equal(ours, ref)
+
+
+def test_hysteresis_kernel_wraps_and_handles_zero_and_nan():
+    dev = _device()
+    mag = torch.zeros((2, 64, 200), device=dev)
+    assert float(hysteresis_kernel.hysteresis(mag, 0.3, 0.8, 4).abs().max()) \
+        == 0.0
+    # The only strong pixel on row 0, weak pixels on the last rows and in
+    # the last column.
+    mag[0, 0, 5] = 0.9
+    mag[0, -3:, 3:8] = 0.5
+    mag[0, 0:2, -1] = 0.5
+    mag[0, 1, 0] = 0.5
+    mag[1, 10, 10] = float("nan")
+    mag[1, 10, 11] = 0.9
+    for iters in (0, 1, 4, 8):
+        ours = hysteresis_kernel.hysteresis(mag, 0.3, 0.8, iters)
+        ref = hysteresis_kernel.hysteresis_ref(mag, 0.3, 0.8, iters)
+        assert torch.equal(ours, ref)
+        assert bool(ours[0, -1, 5] > 0) == (iters >= 1)
+        assert float(ours[1, 10, 10]) == 0.0
+    nan = torch.full((2, 1, 1), float("nan"), device=dev)
+    ours = hysteresis_kernel.hysteresis(mag, nan, nan, 4)
+    assert float(ours.abs().max()) == 0.0
+    with pytest.raises(ValueError):
+        hysteresis_kernel.hysteresis(mag, 0.3, 0.8,
+                                     hysteresis_kernel.MAX_ITERS + 1)
+
+
+def test_edge_map_batch_takes_both_kernels():
+    """``edge_map_batch`` on the card is one edge launch and one hysteresis
+    launch, and equals the plain hysteresis of the kernel's magnitudes."""
+    dev = _device()
+    from camkifu_tpu_torch.ops import edges
+
+    x = _edge_input((4, 256, 256), seed=11).to(dev)
+    before = (edge_kernel.launches, hysteresis_kernel.launches)
+    ours = edges.edge_map_batch(x)
+    after = (edge_kernel.launches, hysteresis_kernel.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    mags = edge_kernel.edge_magnitude_ref(x)
+    ref = edges.percentile(mags[:, ::2, ::2].reshape(4, -1), 99.5,
+                           dim=1)[:, None, None]
+    assert torch.equal(ours, hysteresis_kernel.hysteresis_ref(
+        mags, 0.15 * ref, 0.4 * ref, 4))
 
 
 def test_kernels_count_launches():

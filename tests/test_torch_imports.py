@@ -36,6 +36,8 @@ MODULES = [
     "camkifu_tpu_torch.ops.cuda.warp_kernel",
     "camkifu_tpu_torch.ops.cuda.edge_kernel",
     "camkifu_tpu_torch.ops.cuda.hough_kernel",
+    "camkifu_tpu_torch.ops.cuda.hysteresis_kernel",
+    "camkifu_tpu_torch.ops.edges",
     "camkifu_tpu_torch.utils.still",
     "chip_smoke",
 ]

@@ -25,7 +25,8 @@ from camkifu_tpu_torch.board import bf_auto
 from camkifu_tpu_torch.board.bf_auto import resize_bilinear
 from camkifu_tpu_torch.ops import color, edges, filters, hough, kmeans, warp, \
     zones
-from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, warp_kernel
+from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
+    hysteresis_kernel, warp_kernel
 
 torch.set_num_threads(1)
 
@@ -186,6 +187,99 @@ def test_edge_map_cpu_matches_jax_xla_route():
     assert (ours > 0).sum() > 100
 
 
+def test_edge_map_batch_cpu_matches_jax_xla_route():
+    """Three maps with their own thresholds through the plain route."""
+    small = _small_gray()
+    three = np.stack([small, small[::-1].copy(), small.T.copy() * 0.5])
+    ours = edges.edge_map_batch(_t(three)).numpy()
+    ref = np.asarray(jedges.edge_map_batch(jnp.asarray(three),
+                                           backend="xla"))
+    np.testing.assert_allclose(ours, ref, atol=1e-5)
+    assert ((ours > 0).sum(axis=(1, 2)) > 100).all()
+    assert edges.hysteresis is hysteresis_kernel.hysteresis_ref
+
+
+def _hysteresis_maps(n=3, hw=(37, 53), seed=8):
+    """Sparse seeded magnitudes: blobs of weak pixels, few strong ones, so
+    that the dilation steps matter; map 0 also holds the wrap case (its only
+    strong pixel in row 0, weak pixels in the last rows and columns)."""
+    rng = np.random.default_rng(seed)
+    mags = rng.random((n, *hw), dtype=np.float32)
+    mags *= rng.random((n, *hw)) < 0.45
+    mags[0] = 0.0
+    mags[0, 0, 5] = 0.9
+    mags[0, -3:, 3:8] = 0.5
+    mags[0, 0:2, -1] = 0.5
+    mags[0, 1, 0] = 0.5
+    return mags
+
+
+@pytest.mark.parametrize("per_frame", [False, True])
+@pytest.mark.parametrize("iters", [0, 1, 4, 8])
+def test_hysteresis_ref_equals_jax(iters, per_frame):
+    """Exact equality with the reference, frame by frame on its side, with
+    scalar thresholds and with one pair a map as (N, 1, 1) tensors."""
+    mags = _hysteresis_maps()
+    if per_frame:
+        low = np.array([0.3, 0.2, 0.45], np.float32)
+        high = np.array([0.8, 0.7, 0.95], np.float32)
+        ours = hysteresis_kernel.hysteresis_ref(
+            _t(mags), _t(low)[:, None, None], _t(high)[:, None, None], iters)
+    else:
+        low, high = np.full(3, 0.3, np.float32), np.full(3, 0.8, np.float32)
+        ours = hysteresis_kernel.hysteresis_ref(_t(mags), 0.3, 0.8, iters)
+    for i in range(3):
+        ref = np.asarray(jedges.hysteresis(jnp.asarray(mags[i]), low[i],
+                                           high[i], iters))
+        assert np.array_equal(ours[i].numpy(), ref), i
+    # The wrap: the weak pixels of the last rows hang on row 0's strong one.
+    kept = ours[0].numpy() > 0
+    assert kept[0, 5] and kept[-1, 5] == (iters >= 1)
+    assert kept[-3, 5] == (iters >= 3)
+
+
+def _hysteresis_tiled(mag, low, high, iters, th, tw):
+    """The kernel's tiling in tensor ops: each (th, tw) output tile is cut
+    with a halo of ``iters`` pixels through indices modulo H and W, dilated
+    ``iters`` times knowing nothing of what lies outside it, and its
+    interior kept."""
+    h, w = mag.shape
+    out = torch.empty_like(mag)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            ys = torch.arange(y0 - iters, y0 + th + iters) % h
+            xs = torch.arange(x0 - iters, x0 + tw + iters) % w
+            tile = mag[ys][:, xs]
+            strong, weak = tile >= high, tile >= low
+            reach = strong
+            for _ in range(iters):
+                pad = torch.nn.functional.pad(reach, (1, 1, 1, 1))
+                dil = reach
+                for dy in range(3):
+                    for dx in range(3):
+                        dil = dil | pad[dy:dy + reach.shape[0],
+                                        dx:dx + reach.shape[1]]
+                reach = dil & weak
+            res = torch.where(reach | strong, tile, 0.0)
+            res = res[iters:iters + th, iters:iters + tw]
+            out[y0:y0 + th, x0:x0 + tw] = res[:h - y0, :w - x0]
+    return out
+
+
+@pytest.mark.parametrize("hw, tile", [((37, 53), (8, 16)), ((5, 70), (8, 16)),
+                                      ((33, 7), (32, 128))])
+def test_hysteresis_tiling_equals_plain(hw, tile):
+    """Tiles with an ``iters`` halo and modular indices give the plain
+    version's result on shapes that no tile divides, also where the halo
+    wraps around the map more than once."""
+    mags = _hysteresis_maps(n=2, hw=hw, seed=9)
+    for m in mags:
+        for iters in (0, 1, 4, 8):
+            ref = hysteresis_kernel.hysteresis_ref(_t(m), 0.3, 0.8, iters)
+            ours = _hysteresis_tiled(_t(m), 0.3, 0.8, iters, *tile)
+            assert torch.equal(ours, ref), (hw, iters)
+
+
 def _hough_points():
     rng = np.random.default_rng(0)
     img = np.zeros((128, 128), np.float32)
@@ -267,7 +361,7 @@ def test_top_k_keeps_lax_tie_order():
         assert np.array_equal(idx_t.numpy(), np.asarray(idx_j))
 
 
-@pytest.mark.parametrize("call", ["warp", "edge", "hough"])
+@pytest.mark.parametrize("call", ["warp", "edge", "hough", "hysteresis"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches on CUDA tensors or raises; it never falls
     back to its plain version."""
@@ -277,6 +371,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
             warp_kernel.warp_homography(frames, torch.eye(3), (4, 4))
         elif call == "edge":
             edge_kernel.edge_magnitude(torch.zeros((32, 32)))
+        elif call == "hysteresis":
+            hysteresis_kernel.hysteresis(torch.zeros((32, 32)), 0.1, 0.2)
         else:
             hough_kernel.hough_accumulate(torch.zeros((4, 2)), torch.ones(4),
                                           10.0, 8, 16)
