@@ -31,13 +31,13 @@ import torch
 import torch.nn.functional as F
 
 from camkifu_tpu_torch.config import cvconf
-from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
+from camkifu_tpu_torch.ops.color import rgb_to_gray, rgb_to_gray_u8
 from camkifu_tpu_torch.ops.edges import edge_map_batch, percentile
 from camkifu_tpu_torch.ops.filters import edge_pad, sobel
 from camkifu_tpu_torch.ops.hough import hough_accumulate, top_k, \
     topk_edge_points
-from camkifu_tpu_torch.ops.warp import _inv3, apply_homography, \
-    homography_dlt, warp_frames
+from camkifu_tpu_torch.ops.warp import _inv3, _shifted_crop, \
+    apply_homography, homography_dlt, refuse_lens, square, warp_frames
 from camkifu_tpu_torch.ops.zones import median_u8
 
 #: Rectification resolution for the grid-comb refinement.
@@ -235,14 +235,27 @@ def _coarse_from_mag(mag: torch.Tensor, mag_c: torch.Tensor | None):
     return quad, score
 
 
+def _col(v):
+    """A per-frame value with a trailing axis to broadcast against a
+    frame's teeth or bins; Python numbers pass through."""
+    return v[..., None] if isinstance(v, torch.Tensor) else v
+
+
 def _interp1d_hat(profile: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Linear interpolation of a 1D profile at positions ``pos`` as a
-    hat-weight contraction: Σ_b max(0, 1−|b−p|)·profile[b]."""
-    n = profile.shape[0]
+    hat-weight contraction: Σ_b max(0, 1−|b−p|)·profile[b].
+
+    profile (n,) takes ``pos`` of any shape; profiles (..., n) take ``pos``
+    (..., *rest) with the same leading dims, each profile interpolated at
+    its own positions (one batched product)."""
+    n = profile.shape[-1]
     p = torch.clamp(pos, 0.0, n - 1.001)
     bins = torch.arange(n, dtype=torch.float32, device=profile.device)
     w = torch.clamp(1.0 - torch.abs(bins - p[..., None]), min=0.0)
-    return w @ profile
+    if profile.ndim == 1:
+        return w @ profile
+    w = w.reshape(*profile.shape[:-1], -1, n)
+    return (w @ profile[..., None])[..., 0].reshape(p.shape)
 
 
 @functools.lru_cache(maxsize=8)
@@ -285,19 +298,23 @@ def _comb_scores(profile: torch.Tensor, gsize: int, n_offsets: int = 64,
 def _snap_to_peaks(profile: torch.Tensor, teeth: torch.Tensor, pitch,
                    n_off: int):
     """Move each expected tooth position to its sub-pixel profile peak
-    within ±pitch/3 → (snapped positions (g,), peak strengths (g,))."""
+    within ±pitch/3 → (snapped positions (g,), peak strengths (g,)).
+
+    Profiles (..., n) take teeth (..., g) and a pitch that is a number or
+    broadcasts against the leading dims."""
     offs = torch.linspace(-1.0, 1.0, n_off, device=profile.device) \
-        * (pitch / 3.0)
-    win = _interp1d_hat(profile, teeth[:, None] + offs[None, :])  # (g, n_off)
-    best = torch.argmax(win, dim=1)
-    gi = torch.arange(teeth.shape[0], device=profile.device)
-    bm1 = win[gi, torch.clamp(best - 1, 0, n_off - 1)]
-    bp1 = win[gi, torch.clamp(best + 1, 0, n_off - 1)]
-    b0 = win[gi, best]
+        * _col(pitch / 3.0)                                 # (..., n_off)
+    win = _interp1d_hat(profile, teeth[..., :, None] + offs[..., None, :])
+    best = torch.argmax(win, dim=-1, keepdim=True)          # (..., g, 1)
+    bm1 = torch.gather(win, -1, torch.clamp(best - 1, 0, n_off - 1))[..., 0]
+    bp1 = torch.gather(win, -1, torch.clamp(best + 1, 0, n_off - 1))[..., 0]
+    b0 = torch.gather(win, -1, best)[..., 0]
     den = bm1 - 2 * b0 + bp1
     delta = torch.where(torch.abs(den) > 1e-9, 0.5 * (bm1 - bp1) / den, 0.0)
-    step = offs[1] - offs[0]
-    snapped = teeth + offs[best] + torch.clamp(delta, -1.0, 1.0) * step
+    step = (offs[..., 1] - offs[..., 0])[..., None]
+    at_best = torch.gather(offs[..., None, :].expand(win.shape), -1,
+                           best)[..., 0]
+    snapped = teeth + at_best + torch.clamp(delta, -1.0, 1.0) * step
     return snapped, b0
 
 
@@ -409,12 +426,13 @@ def _pin_corners_on_rect(rect: torch.Tensor, H: torch.Tensor,
 
 def _comb_quality(profile: torch.Tensor, o, s, gsize: int):
     """Gap-penalized comb score at exactly (o, s); combs running off the
-    profile window are disqualified."""
-    n = profile.shape[0]
+    profile window are disqualified. Profiles (..., n) take an offset
+    tensor ``o`` (...,) and a spacing that is a number or (...,)."""
+    n = profile.shape[-1]
     idx = torch.arange(gsize, dtype=torch.float32, device=profile.device)
     mid = idx[:-1] + 0.5
-    q = _interp1d_hat(profile, o + s * idx).mean() \
-        - _interp1d_hat(profile, o + s * mid).mean()
+    q = _interp1d_hat(profile, _col(o) + _col(s) * idx).mean(dim=-1) \
+        - _interp1d_hat(profile, _col(o) + _col(s) * mid).mean(dim=-1)
     out = (o < 0.0) | (o + s * (gsize - 1) > n - 1.0)
     return q - 10.0 * out
 
@@ -442,9 +460,7 @@ def _rect_H(quad: torch.Tensor, margin: float, res: int) -> torch.Tensor:
     ``margin``."""
     ctr = quad.mean(dim=0)
     equad = ctr + (quad - ctr) * (1.0 + margin)
-    unit = _f32([[0.0, 0.0], [res - 1.0, 0.0], [res - 1.0, res - 1.0],
-                 [0.0, res - 1.0]], quad.device)
-    return homography_dlt(unit, equad)
+    return homography_dlt(square(0.0, res - 1.0, quad.device), equad)
 
 
 def _sample_rect(gray: torch.Tensor, H: torch.Tensor,
@@ -457,23 +473,24 @@ def _sample_rect(gray: torch.Tensor, H: torch.Tensor,
 
 
 def _prep_profile(profile: torch.Tensor, gsize: int) -> torch.Tensor:
-    """Condition a raw 1D energy profile into a normalized lattice signal:
-    clip spikes at the 90th percentile, high-pass at the cell scale,
-    max-normalize."""
-    p = torch.minimum(profile, percentile(profile, 90))
-    n = p.shape[0]
+    """Condition raw 1D energy profiles (..., n), each on its own, into
+    normalized lattice signals: clip spikes at the 90th percentile,
+    high-pass at the cell scale, max-normalize."""
+    p = torch.minimum(profile, percentile(profile, 90, dim=-1)[..., None])
+    n = p.shape[-1]
     r = max(2, n // (2 * gsize))
-    c = torch.cumsum(edge_pad(p, r + 1, r, 0), dim=0)
-    local_mean = (c[2 * r + 1:] - c[:n]) / (2 * r + 1)
+    c = torch.cumsum(edge_pad(p, r + 1, r, -1), dim=-1)
+    local_mean = (c[..., 2 * r + 1:] - c[..., :n]) / (2 * r + 1)
     p = torch.clamp(p - local_mean, min=0.0)
-    return p / torch.clamp(p.max(), min=1e-6)
+    return p / torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-6)
 
 
 def _wood_deviation(rect: torch.Tensor) -> torch.Tensor:
-    """|rect − wood level|, the wood level being the radix-select median of
-    a 4×-subsampled view."""
-    wood = median_u8(rect[::4, ::4].reshape(1, -1))[0]
-    return torch.abs(rect - wood)
+    """|rect − wood level| of images (..., res, res), the wood level being
+    each image's radix-select median of a 4×-subsampled view."""
+    sub = rect[..., ::4, ::4]
+    wood = median_u8(sub.reshape(*rect.shape[:-2], -1))
+    return torch.abs(rect - wood[..., None, None])
 
 
 def _profiles_of(rect: torch.Tensor, gsize: int):
@@ -491,24 +508,26 @@ def _profiles_of(rect: torch.Tensor, gsize: int):
 
 
 def _split_profiles(rect: torch.Tensor, gsize: int):
-    """Full + half-split lattice profiles: (col_full, row_full, col_top,
-    col_bot, row_left, row_right)."""
-    res = rect.shape[0]
+    """Full + half-split lattice profiles of a rectified image (res, res):
+    (col_full, row_full, col_top, col_bot, row_left, row_right), each
+    (res,). Images (..., res, res) give profiles (..., res): the whole
+    batch's twelve raw profiles are conditioned in one pass."""
+    res = rect.shape[-1]
     gx, gy = sobel(rect)
     i0, i1, mid = res // 8, res - res // 8, res // 2
     dev = _wood_deviation(rect)
     agx, agy = torch.abs(gx), torch.abs(gy)
 
     def colp(a, b):
-        return _prep_profile(agx[a:b, :].mean(dim=0), gsize) \
-            + _prep_profile(dev[a:b, :].mean(dim=0), gsize)
+        return [agx[..., a:b, :].mean(dim=-2), dev[..., a:b, :].mean(dim=-2)]
 
     def rowp(a, b):
-        return _prep_profile(agy[:, a:b].mean(dim=1), gsize) \
-            + _prep_profile(dev[:, a:b].mean(dim=1), gsize)
+        return [agy[..., :, a:b].mean(dim=-1), dev[..., :, a:b].mean(dim=-1)]
 
-    return (colp(i0, i1), rowp(i0, i1), colp(i0, mid), colp(mid, i1),
-            rowp(i0, mid), rowp(mid, i1))
+    raw = torch.stack(colp(i0, i1) + rowp(i0, i1) + colp(i0, mid)
+                      + colp(mid, i1) + rowp(i0, mid) + rowp(mid, i1))
+    p = _prep_profile(raw, gsize)                         # (12, ..., res)
+    return tuple(p[0::2] + p[1::2])
 
 
 def _fit_combs_multi(H: torch.Tensor, col_profile: torch.Tensor,
@@ -936,3 +955,510 @@ def detect_batch_stable(frames: torch.Tensor,
     med = torch.nanquantile(big, 0.5, dim=0)
     return torch.where(torch.isnan(med), torch.quantile(corners, 0.5, dim=0),
                        med)
+
+
+# ---------------------------------------------------------------------------
+# Per-frame corner tracking (a handheld camera): each frame's board motion
+# is measured from its own pixels on a canvas its chunk shares. A chunk of
+# frames is a tensor dimension; the only Python loop is the one over
+# chunks, which carries (seed, ref_col, ref_row) as tensors and never
+# reads a value on the host.
+# ---------------------------------------------------------------------------
+
+#: Outward margin of the tracking rectification; also bounds how far the
+#: board may move within ~2 chunks before tracking must re-seed.
+TRACK_MARGIN = 0.18
+
+#: Correlation search half-window, in cells: how far the board may move
+#: between consecutive tracked frames (and per chunk re-seed).
+TRACK_WIN_OFFSET = 0.75
+
+#: Correlation-peak sharpness (peak/mean) below which a frame's measurement
+#: is rejected (occlusion/motion blur) and the previous offset is kept.
+TRACK_MIN_SHARPNESS = 1.5
+
+#: Reference-profile adaptation rate (EMA toward the latest aligned frame,
+#: so slow scene changes — new stones — don't decorrelate the reference).
+TRACK_REF_EMA = 0.15
+
+#: Lattice-alignment trip-wire: a host forces re-detection when a batch's
+#: comb alignment falls below this fraction of the baseline pinned at the
+#: last re-anchor.
+TRACK_ALIGN_TRIP = 0.6
+
+#: Discontinuity trip-wire: the max credible per-frame tracked-corner step,
+#: in cells (the lattice is periodic, so a bump can lock a whole cell off).
+TRACK_JUMP_TRIP = 0.5
+
+#: Per-chunk caps on the measured rotation/scale update: beyond these the
+#: scene changed faster than tracking can model (a bump).
+TRACK_MAX_THETA = 0.12          # rad (~7°)
+TRACK_MAX_SIGMA = 0.08
+
+#: Max disagreement between the two independent θ (or σ) estimates before
+#: the whole frame is distrusted: occluders corrupt the x- and y-derived
+#: estimates differently; real rotation/zoom moves both together.
+TRACK_DIFF_AGREE = 0.015
+
+#: Deadband (in cells) for the ABSOLUTE corrections (teeth-fit center
+#: deviations, lattice lock): below it a correction is indistinguishable
+#: from the lattice signal's own content bias; above it, it is a real
+#: seed/reference error and applies whole.
+TRACK_ABS_DEADBAND = 0.12
+
+
+def _profile_shift(profile: torch.Tensor, delta) -> torch.Tensor:
+    """Translate a 1D profile by ``delta`` (sub-pixel, edge-clamped)."""
+    n = profile.shape[0]
+    return _interp1d_hat(
+        profile,
+        torch.arange(n, dtype=torch.float32, device=profile.device) + delta)
+
+
+def _corr_shift(profiles: torch.Tensor, ref: torch.Tensor, S: int):
+    """(B, n) profiles × (n,) reference → per-frame sub-pixel translation +
+    correlation-peak sharpness, via one (B, n)×(n, 2S+1) product.
+
+    corr[s] pairs p[i] with ref[i + s − S]: a peak at s means the profile
+    is the reference translated RIGHT by d = S − s. Ties take the first
+    peak.
+    """
+    n = profiles.shape[-1]
+    n_sh = 2 * S + 1
+    shifted = F.pad(ref, (S, S)).unfold(0, n, 1)            # (2S+1, n)
+    corr = profiles @ shifted.T                             # (B, 2S+1)
+    best = torch.argmax(corr, dim=1, keepdim=True)
+    c0 = torch.gather(corr, 1, best)[:, 0]
+    cm = torch.gather(corr, 1, torch.clamp(best - 1, 0, n_sh - 1))[:, 0]
+    cp = torch.gather(corr, 1, torch.clamp(best + 1, 0, n_sh - 1))[:, 0]
+    den = cm - 2 * c0 + cp
+    sub = torch.where(torch.abs(den) > 1e-9,
+                      torch.clamp(0.5 * (cm - cp) / den, -1, 1), 0.0)
+    d = S - (best[:, 0].to(torch.float32) + sub)
+    sharp = c0 / torch.clamp(corr.mean(dim=1), min=1e-6)
+    return d, sharp
+
+
+def _hold_bad(d: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Replace rejected per-frame measurements (chunk,) with the last good
+    one, 0 before the first: a running maximum over the good frames'
+    indices, then a gather."""
+    idx = torch.arange(d.shape[0], device=d.device)
+    last = torch.cummax(torch.where(ok, idx, -1), dim=0).values
+    return torch.where(last >= 0, d[torch.clamp(last, min=0)], 0.0)
+
+
+def _lattice_offset(profile: torch.Tensor, first, pitch, gsize: int,
+                    S: int):
+    """ABSOLUTE lattice lock: sub-pixel offset of a profile's lattice from
+    the positions the seed quad implies (teeth at first + k·pitch).
+
+    The content-reference correlation measures only RELATIVE motion, so a
+    seed error would persist as a constant corner offset; correlating
+    against a synthetic comb TEMPLATE of the expected lattice measures the
+    absolute residual once per chunk. Returns (offset, sharpness).
+    """
+    n = profile.shape[0]
+    bins = torch.arange(n, dtype=torch.float32, device=profile.device)
+    pos = first + pitch * torch.arange(gsize, dtype=torch.float32,
+                                       device=profile.device)
+    template = torch.clamp(
+        1.0 - torch.abs(bins[None, :] - pos[:, None]), min=0.0).sum(dim=0)
+    d, sh = _corr_shift(profile[None, :], template, S)
+    return d[0], sh[0]
+
+
+def _abs_lock_update(cols0, rows0, first_x, first_y, px, py,
+                     dx0, dy0, ok0, e_lock, S: int, gsize: int):
+    """One chunk's absolute-lattice-lock update, shared by both tracking
+    engines (per-axis vs shared pitch is the only call-site difference).
+
+    Template-correlate the chunk's first frame against the seed-implied
+    comb, then gate the residual three ways before merging it into the
+    running ``e_lock`` (2,): correlation sharpness + frame ok; the
+    comb-quality referee (accept only where the absolute comb score of the
+    locked position beats the currently-held one); and the deadband
+    (TRACK_ABS_DEADBAND·pitch).
+    """
+    ex_m, sex = _lattice_offset(cols0, first_x, px, gsize, S)
+    ey_m, sey = _lattice_offset(rows0, first_y, py, gsize, S)
+    qx_with = _comb_quality(cols0, first_x + ex_m, px, gsize)
+    qx_without = _comb_quality(cols0, first_x + dx0 + e_lock[0], px, gsize)
+    qy_with = _comb_quality(rows0, first_y + ey_m, py, gsize)
+    qy_without = _comb_quality(rows0, first_y + dy0 + e_lock[1], py, gsize)
+    exc = ex_m - dx0
+    eyc = ey_m - dy0
+    return torch.stack([
+        torch.where((sex >= TRACK_MIN_SHARPNESS) & ok0
+                    & (qx_with > qx_without)
+                    & (torch.abs(exc) >= TRACK_ABS_DEADBAND * px),
+                    exc, e_lock[0]),
+        torch.where((sey >= TRACK_MIN_SHARPNESS) & ok0
+                    & (qy_with > qy_without)
+                    & (torch.abs(eyc) >= TRACK_ABS_DEADBAND * py),
+                    eyc, e_lock[1])])
+
+
+def _teeth_fit(profile: torch.Tensor, first, pitch, gsize: int):
+    """Robust per-tooth lattice fit: snap each of the gsize teeth (expected
+    at first + k·pitch) to its sub-pixel profile peak within ±pitch/3, then
+    IRLS-weighted linear fit position_k ≈ A + B·(k − center).
+
+    Profiles (..., n) take ``first`` (...,) and a pitch that is a number
+    or broadcasts against it. Returns (da, b, ok), each (...,): deviation
+    of the lattice CENTER from expected, fitted pitch B, and a validity
+    flag (weighted rms residual < 0.15·pitch).
+    """
+    idx = torch.arange(gsize, dtype=torch.float32, device=profile.device)
+    snapped, b0 = _snap_to_peaks(profile, _col(first) + _col(pitch) * idx,
+                                 pitch, n_off=15)
+
+    w = torch.clamp(b0, min=1e-6)
+    ic = idx - (gsize - 1) / 2.0
+
+    def wls(weights):
+        sw = weights.sum(dim=-1)
+        sx = (weights * ic).sum(dim=-1)
+        sy = (weights * snapped).sum(dim=-1)
+        sxx = (weights * ic * ic).sum(dim=-1)
+        sxy = (weights * ic * snapped).sum(dim=-1)
+        d = torch.clamp(sw * sxx - sx * sx, min=1e-6)
+        B = (sw * sxy - sx * sy) / d
+        A = (sy - B * sx) / sw
+        return A, B
+
+    A, B = wls(w)
+    resid = snapped - (_col(A) + _col(B) * ic)
+    w2 = w / (1.0 + (resid / (0.12 * _col(pitch))) ** 2)
+    A, B = wls(w2)
+    r2 = snapped - (_col(A) + _col(B) * ic)
+    rms = torch.sqrt((w2 * r2 * r2).sum(dim=-1)
+                     / torch.clamp(w2.sum(dim=-1), min=1e-6))
+    ok = (rms < 0.15 * pitch) & (B > 0.5 * pitch)
+    da = A - (first + pitch * (gsize - 1) / 2.0)
+    return da, B, ok
+
+
+def _half_geometry(rc: torch.Tensor, n: int, gsize: int):
+    """Expected per-half lattice (first tooth, pitch) from the seed quad's
+    ACTUAL rect-space corners (4, 2).
+
+    The margin-expanded rectification is projective, so even a perfect
+    seed's lattice is a slightly slanted quad in rect coordinates;
+    interpolating the quad's edge lines at each half's measurement height
+    gives every half its own exact expectation.
+
+    Returns (fx_t, fx_b, sx_t, sx_b, fy_l, fy_r, sy_l, sy_r).
+    """
+    h1, h2 = 0.3125 * n, 0.6875 * n     # interior half measurement centers
+
+    def xl(y):
+        return rc[0, 0] + (y - rc[0, 1]) * (rc[3, 0] - rc[0, 0]) \
+            / (rc[3, 1] - rc[0, 1])
+
+    def xr(y):
+        return rc[1, 0] + (y - rc[1, 1]) * (rc[2, 0] - rc[1, 0]) \
+            / (rc[2, 1] - rc[1, 1])
+
+    def yt(x):
+        return rc[0, 1] + (x - rc[0, 0]) * (rc[1, 1] - rc[0, 1]) \
+            / (rc[1, 0] - rc[0, 0])
+
+    def yb(x):
+        return rc[3, 1] + (x - rc[3, 0]) * (rc[2, 1] - rc[3, 1]) \
+            / (rc[2, 0] - rc[3, 0])
+
+    g1 = gsize - 1
+    return (xl(h1), xl(h2), (xr(h1) - xl(h1)) / g1, (xr(h2) - xl(h2)) / g1,
+            yt(h1), yt(h2), (yb(h1) - yt(h1)) / g1, (yb(h2) - yt(h2)) / g1)
+
+
+def _track_measure(cf, rf, ct, cb, rl, rr, ref_col, ref_row, S: int,
+                   geom, gsize: int):
+    """Full + half-split profiles → per-frame 4-DoF similarity measurement.
+
+    Inputs: (chunk, n) profiles from ``_split_profiles`` and the (n,)
+    full-axis references. Model: the board moved by a similarity about the
+    rect center, p' = c + (1+σ)·R(θ)·(p−c) + t.
+
+    Coarse translation and the frame gate use the full-extent content
+    correlations (an occluder collapses their peak sharpness, so corrupted
+    frames reject and hold). The four half-split profiles then get one
+    robust per-tooth lattice fit (``_teeth_fit`` over a (4, chunk) stack),
+    seeded at the frame's coarse translation and each against its own
+    expected lattice (``_half_geometry``): rotation from the offsets of
+    opposite halves, scale from the fitted pitch, absolute translation
+    from the mean center offset. Each differential is accepted only when
+    the frame's gate passed, both its half-fits converged, and the x- and
+    y-derived estimates agree where both exist.
+
+    Returns (tx, ty, theta, sigma, sharp, ok, rot_ok, scl_ok), all (chunk,).
+    """
+    n = ct.shape[-1]
+    fx_t, fx_b, sx_t, sx_b, fy_l, fy_r, sy_l, sy_r = geom
+    tx, shxf = _corr_shift(cf, ref_col, S)
+    ty, shyf = _corr_shift(rf, ref_row, S)
+    sharp = torch.minimum(shxf, shyf)
+    ok = sharp >= TRACK_MIN_SHARPNESS
+
+    firsts = torch.stack([fx_t + tx, fx_b + tx, fy_l + ty, fy_r + ty])
+    pitches = torch.stack([sx_t, sx_b, sy_l, sy_r])[:, None]
+    (a_t, a_b, a_l, a_r), (b_t, b_b, b_l, b_r), (k_t, k_b, k_l, k_r) = \
+        _teeth_fit(torch.stack([ct, cb, rl, rr]), firsts, pitches, gsize)
+
+    lo = 0.375 * n                        # orthogonal-split lever
+
+    th1 = (a_t - a_b) / lo
+    th2 = (a_r - a_l) / lo
+    v1 = k_t & k_b & ok
+    v2 = k_l & k_r & ok
+    both = v1 & v2
+    agree_t = torch.abs(th1 - th2) < TRACK_DIFF_AGREE
+    theta = torch.where(both, 0.5 * (th1 + th2), torch.where(v1, th1, th2))
+    rot_ok = torch.where(both, agree_t, v1 | v2)
+
+    sg1 = 0.5 * (b_t / sx_t + b_b / sx_b) - 1.0
+    sg2 = 0.5 * (b_l / sy_l + b_r / sy_r) - 1.0
+    agree_s = torch.abs(sg1 - sg2) < TRACK_DIFF_AGREE
+    sigma = torch.where(both, 0.5 * (sg1 + sg2), torch.where(v1, sg1, sg2))
+    scl_ok = torch.where(both, agree_s, v1 | v2)
+
+    # Per-frame absolute translation refinement, when both halves fit (a
+    # single half would alias θ into translation), outside the deadband.
+    dbx = TRACK_ABS_DEADBAND * 0.5 * (sx_t + sx_b)
+    dby = TRACK_ABS_DEADBAND * 0.5 * (sy_l + sy_r)
+    cx = 0.5 * (a_t + a_b)
+    cy = 0.5 * (a_l + a_r)
+    tx = torch.where(v1 & (torch.abs(cx) >= dbx), tx + cx, tx)
+    ty = torch.where(v2 & (torch.abs(cy) >= dby), ty + cy, ty)
+
+    theta = torch.clamp(theta, -TRACK_MAX_THETA, TRACK_MAX_THETA)
+    sigma = torch.clamp(sigma, -TRACK_MAX_SIGMA, TRACK_MAX_SIGMA)
+    return tx, ty, theta, sigma, sharp, ok, rot_ok, scl_ok
+
+
+def _apply_similarity(rc_pts: torch.Tensor, dx, dy, theta, sigma):
+    """Apply per-frame similarity updates to rect-space points.
+
+    rc_pts: (k, 2); dx/dy/theta/sigma: (chunk,). → (chunk, k, 2)."""
+    c = rc_pts.mean(dim=0)
+    v = rc_pts - c                                       # (k, 2)
+    cosT, sinT = torch.cos(theta), torch.sin(theta)      # (chunk,)
+    rot = torch.stack([torch.stack([cosT, -sinT], -1),
+                       torch.stack([sinT, cosT], -1)], -2)   # (chunk, 2, 2)
+    vv = torch.einsum("cij,kj->cki", rot, v) * (1.0 + sigma)[:, None, None]
+    return c + vv + torch.stack([dx, dy], -1)[:, None, :]
+
+
+def _align_quality(cols, rows, rc_seed, dx, dy, sigma, gsize: int):
+    """Lattice-alignment trip-wire signal (chunk,): the gap-penalized comb
+    score of each frame's OWN profiles at the comb position the tracked
+    transform predicts. It is absolute: teeth off the true lattice score
+    low however self-consistent the correlation is."""
+    c = rc_seed.mean(dim=0)
+    ox = c[0] + (rc_seed[0, 0] - c[0]) * (1.0 + sigma) + dx   # (chunk,)
+    oy = c[1] + (rc_seed[0, 1] - c[1]) * (1.0 + sigma) + dy
+    sx = (rc_seed[1, 0] - rc_seed[0, 0]) * (1.0 + sigma) / (gsize - 1)
+    sy = (rc_seed[3, 1] - rc_seed[0, 1]) * (1.0 + sigma) / (gsize - 1)
+    return _comb_quality(cols, ox, sx, gsize) \
+        + _comb_quality(rows, oy, sy, gsize)
+
+
+def _chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, ...) → (k, chunk, ...), the last frame repeated up to a multiple
+    of ``chunk``."""
+    pad = (-x.shape[0]) % chunk
+    if pad:
+        x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+    return x.reshape(x.shape[0] // chunk, chunk, *x.shape[1:])
+
+
+def _held_measure(profiles, ref_col, ref_row, S: int, geom, gsize: int):
+    """``_track_measure`` of a chunk with rejected frames holding the last
+    good value per degree of freedom → (dx, dy, theta, sigma, sharp, ok)."""
+    tx, ty, theta, sigma, sharp, ok, rot_ok, scl_ok = _track_measure(
+        *profiles, ref_col, ref_row, S, geom, gsize)
+    return (_hold_bad(tx, ok), _hold_bad(ty, ok),
+            _hold_bad(theta, rot_ok & ok), _hold_bad(sigma, scl_ok & ok),
+            sharp, ok)
+
+
+def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
+                        gsize: int = 19, chunk: int = 8,
+                        res: int = REFINE_RES, lens=None):
+    """Per-frame board corners across a batch, tracked from a seed
+    detection.
+
+    Each ``chunk`` consecutive gray frames are rectified through one
+    homography built from the running seed (one warp launch per chunk),
+    and each frame's lattice profiles are cross-correlated against a
+    slowly-adapting reference for a coarse (dx, dy); on top of it a full
+    4-DoF similarity (translation, in-plane rotation, scale) is solved
+    from half-split profile lattice fits (``_track_measure``). The next
+    chunk re-rectifies at the last frame's corners. Out-of-plane drift is
+    unmodeled; the per-frame lattice-alignment score ``align`` is the
+    trip-wire for it.
+
+    frames: (B, H, W, 3) uint8/float; seed_corners: (4, 2) from
+    ``detect_corners`` (or the previous batch's ``new_seed``).
+    Returns (corners (B, 4, 2) float32, sharpness (B,), align (B,),
+    new_seed (4, 2)).
+    """
+    refuse_lens(lens)
+    b = frames.shape[0]
+    fc = _chunks(frames, chunk)
+
+    # Correlation search window, in rect px (static).
+    s0 = (res - 1.0) / ((1.0 + TRACK_MARGIN) * (gsize - 1))
+    S = max(2, int(round(TRACK_WIN_OFFSET * s0)))
+
+    def canvas(seed):
+        """Homography rect → frame of the canvas anchored on ``seed``, and
+        where the seed corners ACTUALLY land on it (4, 2): the frame-space
+        margin expansion is not affine."""
+        H = _rect_H(seed, TRACK_MARGIN, res)
+        return H, apply_homography(_inv3(H), seed)
+
+    seed = seed_corners.to(torch.float32)
+    H, rc_seed = canvas(seed)
+    ref_col = ref_row = None
+    out_cs, out_sharp, out_align = [], [], []
+    for frames_chunk in fc:
+        grays = rgb_to_gray_u8(frames_chunk)
+        rects = warp_frames(grays[..., None], H, (res, res),
+                            1.0 / 255.0)[..., 0]
+        profiles = _split_profiles(rects, gsize)
+        cols, rows = profiles[0], profiles[1]
+        # The first chunk bootstraps the reference from its first frame
+        # (the seed detection ran on or near it).
+        if ref_col is None:
+            ref_col, ref_row = cols[0], rows[0]
+        sx = (rc_seed[1, 0] - rc_seed[0, 0]) / (gsize - 1)
+        sy = (rc_seed[3, 1] - rc_seed[0, 1]) / (gsize - 1)
+        first_x = 0.5 * (rc_seed[0, 0] + rc_seed[3, 0])
+        first_y = 0.5 * (rc_seed[0, 1] + rc_seed[1, 1])
+        dx, dy, theta, sigma, sharp, ok = _held_measure(
+            profiles, ref_col, ref_row, S,
+            _half_geometry(rc_seed, res, gsize), gsize)
+
+        # Absolute lattice lock, chunk-local: the hand-off re-anchors on
+        # measured corners, so no correction carries across chunks.
+        e_lock = _abs_lock_update(cols[0], rows[0], first_x, first_y,
+                                  sx, sy, dx[0], dy[0], ok[0],
+                                  dx.new_zeros(2), S, gsize)
+        dx = dx + e_lock[0]
+        dy = dy + e_lock[1]
+
+        cs = apply_homography(
+            H, _apply_similarity(rc_seed, dx, dy, theta, sigma))
+        out_cs.append(cs)
+        out_sharp.append(sharp)
+        out_align.append(
+            _align_quality(cols, rows, rc_seed, dx, dy, sigma, gsize))
+        # Hand off: the next chunk re-rectifies at the last frame's
+        # corners, so on ITS canvas the lattice sits at the new rc_seed.
+        # Realign both reference parts onto the new anchor
+        # (``_profile_shift`` moves a peak at p to p − delta).
+        seed = cs[-1]
+        anchor = rc_seed.mean(dim=0)
+        H, rc_seed = canvas(seed)
+        anchor2 = rc_seed.mean(dim=0)
+        ref_col = (1 - TRACK_REF_EMA) * _profile_shift(
+            ref_col, anchor[0] - anchor2[0]) \
+            + TRACK_REF_EMA * _profile_shift(
+                cols[-1], anchor[0] + dx[-1] - anchor2[0])
+        ref_row = (1 - TRACK_REF_EMA) * _profile_shift(
+            ref_row, anchor[1] - anchor2[1]) \
+            + TRACK_REF_EMA * _profile_shift(
+                rows[-1], anchor[1] + dy[-1] - anchor2[1])
+    return (torch.cat(out_cs)[:b], torch.cat(out_sharp)[:b],
+            torch.cat(out_align)[:b], seed)
+
+
+def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
+                        gsize: int = 19, zone: int = 16, chunk: int = 16,
+                        pad_cells: int = 1, lens=None):
+    """FUSED canonical rectification + per-frame board tracking.
+
+    One warp launch per chunk rectifies its frames to an EXPANDED canonical
+    canvas whose anchors put the seed's corner intersections at static
+    positions; lattice-profile correlation against a drift-realigned
+    reference then measures each frame's similarity from its own pixels,
+    and the canonical image is cropped at the measured integer offset and
+    sub-pixel-shifted by the fraction. Against ``track_corners_batch``
+    followed by ``warp_batch_chunked`` this warps each frame once, and the
+    drift correction comes from measured pixels. The crop corrects
+    translation only: in-chunk rotation is bounded by one chunk's worth,
+    since the chunk hand-off re-anchors the canvas on the tracked corners.
+
+    frames: (B, H, W, 3); seed_corners: (4, 2) from ``detect_corners``.
+    Returns (canon (B, S, S, 3) float [0, 1] with S = gsize·zone,
+             corners (B, 4, 2) frame-space, sharpness (B,), align (B,),
+             new_seed (4, 2)).
+    """
+    refuse_lens(lens)
+    b = frames.shape[0]
+    dev = frames.device
+    scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
+    fc = _chunks(frames, chunk)
+
+    size = gsize * zone                      # canonical side (304)
+    pad = pad_cells * zone                   # drift margin (16)
+    E = size + 2 * pad                       # expanded canvas (336)
+    lo = pad + zone / 2.0 - 0.5
+    hi = pad + size - zone / 2.0 - 0.5
+    anchors = square(lo, hi, dev)
+    # Correlation window must stay under one cell (the lattice is
+    # periodic) and inside the crop margin.
+    S = min(pad - 2, int(round(TRACK_WIN_OFFSET * zone)))
+    geom = _half_geometry(anchors, E, gsize)
+
+    seed = seed_corners.to(torch.float32)
+    ref_col = ref_row = None
+    out_canon, out_cs, out_sharp, out_align = [], [], [], []
+    for frames_chunk in fc:
+        H = homography_dlt(anchors, seed)
+        rect = warp_frames(frames_chunk, H, (E, E), scale)  # (chunk, E, E, 3)
+        profiles = _split_profiles(rgb_to_gray(rect), gsize)
+        cols, rows = profiles[0], profiles[1]
+        if ref_col is None:
+            ref_col, ref_row = cols[0], rows[0]
+        dx, dy, theta, sigma, sharp, ok = _held_measure(
+            profiles, ref_col, ref_row, S, geom, gsize)
+
+        # Absolute lattice lock: here the seed-implied comb is exactly the
+        # static anchors (teeth at lo + k·zone), one pitch for both axes.
+        e_lock = _abs_lock_update(cols[0], rows[0], lo, lo, float(zone),
+                                  float(zone), dx[0], dy[0], ok[0],
+                                  dx.new_zeros(2), S, gsize)
+        dx = dx + e_lock[0]
+        dy = dy + e_lock[1]
+
+        # Canonical crop at the integer offset, then sub-pixel shift by the
+        # fractional remainder. The offset is clamped to the pad−1 integer
+        # headroom + the ±2 px shift range FIRST: dx = correlation (≤ S) +
+        # lattice lock can exceed pad−1, and an unclamped remainder would
+        # saturate inside the shift, mis-cropping the chunk. Beyond the
+        # clamp the canvas does not contain the needed pixels; the corner
+        # outputs keep the true measurement and the next re-anchor
+        # recovers.
+        dc = torch.clamp(torch.stack([dx, dy], -1), -(pad + 1.0), pad + 1.0)
+        ic = torch.clamp(torch.round(dc), -(pad - 1), pad - 1)
+        out_canon.append(_shifted_crop(rect, pad + ic.long(), size, dc - ic))
+
+        cs = apply_homography(
+            H, _apply_similarity(anchors, dx, dy, theta, sigma))
+        out_cs.append(cs)
+        out_sharp.append(sharp)
+        out_align.append(
+            _align_quality(cols, rows, anchors, dx, dy, sigma, gsize))
+        # The next chunk re-anchors at the last frame's corners: its
+        # lattice lands back at ``anchors``, so the old reference needs no
+        # shift and the last profile realigns by its own translation.
+        seed = cs[-1]
+        ref_col = (1 - TRACK_REF_EMA) * ref_col \
+            + TRACK_REF_EMA * _profile_shift(cols[-1], dx[-1])
+        ref_row = (1 - TRACK_REF_EMA) * ref_row \
+            + TRACK_REF_EMA * _profile_shift(rows[-1], dy[-1])
+    return (torch.cat(out_canon)[:b], torch.cat(out_cs)[:b],
+            torch.cat(out_sharp)[:b], torch.cat(out_align)[:b], seed)

@@ -1,5 +1,5 @@
 """Perspective rectification: DLT homography + bilinear inverse warp (port
-of camkifu_tpu/ops/warp.py, fixed-camera path).
+of camkifu_tpu/ops/warp.py: one fixed camera, or corners per frame).
 
 Coordinate convention: OpenCV's — integer coordinate i is the center of
 pixel i. Corners are (..., 4, 2) float (x, y), ordered tl/tr/br/bl.
@@ -13,6 +13,7 @@ on the CPU (``warp_frames``).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,14 +21,30 @@ import torch
 from camkifu_tpu_torch.config import cvconf, guiconf
 
 
+def refuse_lens(lens) -> None:
+    """The entry points that take the reference's ``lens`` argument accept
+    only None until the lens model is ported."""
+    if lens is not None:
+        raise NotImplementedError(
+            "the lens model is ROADMAP Queue A item 5 (ops/lens.py), not "
+            "ported yet; pass lens=None")
+
+
+@functools.lru_cache(maxsize=32)
+def square(lo: float, hi: float, device=None) -> torch.Tensor:
+    """The corners tl/tr/br/bl (4, 2) float32 of the square [lo, hi]² on
+    ``device``, made once: a tensor built from Python numbers is a copy
+    the host waits for. Read only."""
+    return torch.tensor([[lo, lo], [hi, lo], [hi, hi], [lo, hi]],
+                        dtype=torch.float32, device=device)
+
+
 def canonical_corners(gsize: int = guiconf.gsize,
                       zone: int = cvconf.zone_size,
                       device=None) -> torch.Tensor:
-    """Canonical (x, y) targets of the 4 corner intersections, tl/tr/br/bl."""
-    lo = zone / 2.0 - 0.5
-    hi = gsize * zone - zone / 2.0 - 0.5
-    return torch.tensor([[lo, lo], [hi, lo], [hi, hi], [lo, hi]],
-                        dtype=torch.float32, device=device)
+    """Canonical (x, y) targets of the 4 corner intersections, tl/tr/br/bl
+    (read only: one tensor per size and device)."""
+    return square(zone / 2.0 - 0.5, gsize * zone - zone / 2.0 - 0.5, device)
 
 
 def _normalizer(pts: torch.Tensor) -> torch.Tensor:
@@ -165,9 +182,9 @@ def warp_batch_fixed(frames: torch.Tensor, corners: torch.Tensor,
     """(B, H, W, C) frames + one fixed (4, 2) corner set → (B, S, S, C),
     S = gsize·zone, in the frame's scale times ``scale``."""
     if corners.ndim != 2:
-        raise NotImplementedError(
-            "per-frame (B, 4, 2) corners belong to the tracking slice "
-            "(warp_batch_chunked), which is not ported yet")
+        raise ValueError(f"warp_batch_fixed takes one (4, 2) corner set, got "
+                         f"{tuple(corners.shape)}; per-frame corners go "
+                         f"through warp_batch_chunked")
     size = gsize * zone
     H = homography_dlt(canonical_corners(gsize, zone, corners.device),
                        corners)
@@ -179,3 +196,92 @@ def warp_to_canonical(frame: torch.Tensor, corners: torch.Tensor,
                       zone: int = cvconf.zone_size) -> torch.Tensor:
     """Rectify one frame (H, W, C) to the canonical (gsize·zone)² image."""
     return warp_batch_fixed(frame[None], corners, gsize, zone)[0]
+
+
+def _shifted_crop(src: torch.Tensor, origin: torch.Tensor | None, size: int,
+                  offset: torch.Tensor) -> torch.Tensor:
+    """Crop a ``size``² window of each (B, Hs, Ws, C) image at its own
+    integer ``origin`` ((B, 2) int64 (x, y); None for (0, 0)), and
+    translate the window's content by −``offset`` ((B, 2) float (dx, dy),
+    clamped to [−2, 1.999] px), replicating the window's own edge.
+
+    The reference blends the 16 static integer shifts of the edge-padded
+    window with bilinear hat weights, of which at most four are non-zero.
+    Only those four are gathered here, in the same order, so the sums are
+    the same (the other twelve terms add exact zeros): four gathers through
+    per-frame row and column index tensors, no value read on the host.
+    """
+    dev = src.device
+    bi = torch.arange(src.shape[0], device=dev)[:, None, None]
+    p = 2.0 + torch.clamp(offset, -2.0, 1.999)            # (B, 2), in [0, 4)
+    # The two shifts with weight on each axis: (B, tap, axis), of the 0..3
+    # the reference blends. Shift 4 is not among them: it has no term.
+    k = torch.floor(p)[:, None, :] \
+        + torch.arange(2, dtype=p.dtype, device=dev)[:, None]
+    w = torch.where(k <= 3.0,
+                    torch.clamp(1.0 - torch.abs(p[:, None, :] - k), min=0.0),
+                    0.0)
+    # Source index of every window pixel under each shift: (B, tap, size,
+    # axis), clamped to the window (its replicated edge), then moved to it.
+    idx = torch.clamp(torch.arange(size, device=dev)[:, None]
+                      + (k.long()[:, :, None, :] - 2), 0, size - 1)
+    if origin is not None:
+        idx = idx + origin[:, None, None, :]
+    out = None
+    for ty in (0, 1):
+        for tx in (0, 1):
+            term = (w[:, ty, 1] * w[:, tx, 0])[:, None, None, None] \
+                * src[bi, idx[:, ty, :, 1, None], idx[:, tx, None, :, 0]]
+            out = term if out is None else out + term
+    return out
+
+
+def _subpixel_shift(img: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """Translate (S, S, C) content by −offset (offset = (dx, dy) float,
+    clamped to [−2, 1.999] px), replicating the image's edge; (B, S, S, C)
+    images take (B, 2) offsets, one per image.
+
+    As in the reference, an offset above 1 px fades the image: the blend
+    has no shift beyond +1, so the weights no longer sum to 1."""
+    if img.ndim == 3:
+        return _subpixel_shift(img[None], offset[None])[0]
+    return _shifted_crop(img, None, img.shape[1], offset)
+
+
+def warp_batch_chunked(frames: torch.Tensor, corners: torch.Tensor,
+                       gsize: int = guiconf.gsize,
+                       zone: int = cvconf.zone_size, chunk: int = 8,
+                       scale: float = 1.0) -> torch.Tensor:
+    """(B, H, W, C) frames + (B, 4, 2) per-frame corners → (B, S, S, C),
+    in the frame's scale times ``scale``.
+
+    Each ``chunk`` consecutive frames are warped through the homography of
+    their median corners, one warp launch per chunk, and each frame's
+    residual camera motion is then removed by shifting its canonical image
+    by the mean displacement of its own corners in that view (a sub-pixel
+    translation, ``_subpixel_shift``). B need not be a multiple of
+    ``chunk``: the last frame is repeated and the repeats dropped.
+    """
+    b = frames.shape[0]
+    corners = corners.to(torch.float32)
+    pad = (-b) % chunk
+    if pad:
+        frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])])
+        corners = torch.cat([corners, corners[-1:].expand(pad, 4, 2)])
+    k = frames.shape[0] // chunk
+    size = gsize * zone
+    cb = corners.reshape(k, chunk, 4, 2)
+    # The median of an even count averages the two middle values, as
+    # jnp.median does; torch.median would return the lower one.
+    cc = torch.quantile(cb, 0.5, dim=1)                      # (k, 4, 2)
+    ideal = canonical_corners(gsize, zone, corners.device)
+    hmats = homography_dlt(ideal, cc)                        # (k, 3, 3)
+    canon = torch.cat([
+        warp_frames(frames[i * chunk:(i + 1) * chunk], hmats[i], (size, size),
+                    scale) for i in range(k)])
+    # Where each frame's true corners land in its chunk's canonical view;
+    # their mean displacement from the ideal anchors is the residual camera
+    # translation.
+    landed = apply_homography(_inv3(hmats)[:, None], cb)     # (k, chunk, 4, 2)
+    offsets = (landed - ideal).mean(dim=2).reshape(k * chunk, 2)
+    return _subpixel_shift(canon, offsets)[:b]

@@ -10,6 +10,8 @@ frames, where the reference vmaps.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from camkifu_tpu_torch.config import cvconf, guiconf
@@ -29,23 +31,30 @@ MIN_CLUSTER_CONTRAST = 0.15
 INIT_CONTRAST = (-0.35, 0.0, 0.35)
 
 
+@functools.lru_cache(maxsize=8)
+def _constants(device):
+    """(initial centroids (3, 3), luma weights (3,), label of each
+    luminance rank (3,) int8) on ``device``, made once: a tensor built from
+    Python numbers is a copy the host waits for. Read only."""
+    return (torch.tensor([[c, c, c] for c in INIT_CONTRAST],
+                         dtype=torch.float32, device=device),
+            torch.tensor(_LUMA, dtype=torch.float32, device=device),
+            torch.tensor([BLACK, EMPTY, WHITE], dtype=torch.int8,
+                         device=device))
+
+
 def _classify_contrast(contrast: torch.Tensor, g: int, iters: int = 8):
     """k-means classification of (..., g·g, 3) per-channel local contrast
     → (labels (..., g, g) int8, confidence (..., g, g))."""
-    dev = contrast.device
     lead = contrast.shape[:-2]
-    init = torch.tensor([[c, c, c] for c in INIT_CONTRAST],
-                        dtype=torch.float32, device=dev)
+    init, luma, rank_to_label = _constants(contrast.device)
     cents, raw_labels, _ = kmeans(contrast, init, k=3, iters=iters)
     raw = raw_labels.long()
 
     # Order clusters by luminance of their contrast: most negative = black.
-    luma = torch.tensor(_LUMA, dtype=torch.float32, device=dev)
     cluster_luma = cents @ luma                                  # (..., 3)
     rank = torch.argsort(torch.argsort(cluster_luma, dim=-1, stable=True),
                          dim=-1, stable=True)
-    rank_to_label = torch.tensor([BLACK, EMPTY, WHITE], dtype=torch.int8,
-                                 device=dev)
     labels = rank_to_label[torch.gather(rank, -1, raw)]
 
     # A "stone" cluster whose centroid contrast norm is too weak is

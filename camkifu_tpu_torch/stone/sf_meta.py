@@ -17,10 +17,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from camkifu_tpu_torch.board.bf_auto import rectify_track_batch
 from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.ops.color import rgb_to_gray
-from camkifu_tpu_torch.ops.warp import warp_batch_fixed
+from camkifu_tpu_torch.ops.warp import refuse_lens, warp_batch_chunked, \
+    warp_batch_fixed
 from camkifu_tpu_torch.ops.zones import zone_stats
 from camkifu_tpu_torch.stone import sf_clustering, sf_contours
 from camkifu_tpu_torch.stone.votes import vote_update, zone_motion_gate
@@ -99,21 +101,20 @@ def _regions(gsize: int, device):
 def read_batch(state: MetaState, frames: torch.Tensor,
                corners: torch.Tensor, gsize: int = guiconf.gsize,
                zone: int = cvconf.zone_size, neural_params=None,
-               valid_count=None):
+               valid_count=None, lens=None):
     """The meta state machine over a batch of frames.
 
     frames: (B, H, W, 3) uint8 (or float in [0, 1] on the CPU); corners:
-    (4, 2), one fixed camera. valid_count: frames at index ≥ it are
-    capture padding (repeats of the last real frame) and cast no votes.
+    (4, 2), one fixed camera, or (B, 4, 2), one set per frame (a tracked
+    camera, through ``warp_batch_chunked``). valid_count: frames at index
+    ≥ it are capture padding (repeats of the last real frame) and cast no
+    votes.
     Returns (state, labels (B, g, g) int8, conf (B, g, g), agitation (B,)).
     """
-    if corners.ndim == 3:
-        raise NotImplementedError(
-            "per-frame (B, 4, 2) corners belong to the tracking slice "
-            "(warp_batch_chunked, rectify_track_batch), not ported yet")
+    refuse_lens(lens)
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
-    canon = warp_batch_fixed(frames, corners.to(torch.float32), gsize, zone,
-                             scale=scale)
+    warp = warp_batch_chunked if corners.ndim == 3 else warp_batch_fixed
+    canon = warp(frames, corners.to(torch.float32), gsize, zone, scale=scale)
     return _scan_canonical(state, canon, gsize, zone, neural_params,
                            valid_count)
 
@@ -194,6 +195,28 @@ def _scan_canonical(state: MetaState, canon: torch.Tensor, gsize: int,
         frame_count=state.frame_count + valid.sum().to(torch.int32))
     return new_state, torch.stack(out_labels), torch.stack(out_conf), \
         agitation
+
+
+def track_read_batch(state: MetaState, frames: torch.Tensor,
+                     seed_corners: torch.Tensor,
+                     gsize: int = guiconf.gsize,
+                     zone: int = cvconf.zone_size, chunk: int = 16,
+                     neural_params=None, valid_count=None, lens=None):
+    """The handheld engine: fused per-frame board tracking + rectification
+    (``bf_auto.rectify_track_batch``), then classification and the vote
+    scan on its canonical images. Nothing in it waits for the device.
+
+    frames: (B, H, W, 3); seed_corners: (4, 2) from a full detection or
+    the previous batch's ``new_seed`` (a host re-detects at its own
+    cadence and re-anchors the seed).
+    Returns (state, labels, conf, agitation, corners (B, 4, 2),
+    sharpness (B,), align (B,), new_seed (4, 2)).
+    """
+    canon, corners, sharp, align, new_seed = rectify_track_batch(
+        frames, seed_corners, gsize=gsize, zone=zone, chunk=chunk, lens=lens)
+    new_state, labels, conf, agitation = _scan_canonical(
+        state, canon, gsize, zone, neural_params, valid_count)
+    return new_state, labels, conf, agitation, corners, sharp, align, new_seed
 
 
 # -- host-side state surgery (human-correction feedback) ---------------------

@@ -1,6 +1,7 @@
 """Synthetic camera stills and recorded games of a goban with known labels
-and corners, drawn with numpy alone (no cv2, no JAX), for runs on machines
-that have neither. Moves come from the reference's rules engine.
+and corners, from a fixed camera or one held in the hand, drawn with numpy
+alone (no cv2, no JAX), for runs on machines that have neither. Moves come
+from the reference's rules engine.
 
 The board is drawn analytically in board coordinates — intersection (r, c)
 at (c, r), the slab reaching half a cell past the outer lines — and every
@@ -10,6 +11,8 @@ follows ``camkifu_tpu.utils.synth.default_corners``.
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -155,23 +158,60 @@ def game_states(moves: list[Move], gsize: int = 19):
 def render_game(moves: list[Move], frames_per_move: int,
                 frame_hw=(720, 1280), gsize: int = 19, seed: int = 0,
                 empty_leadin: int = 2, noise: float = 3.0,
-                corners: np.ndarray | None = None):
-    """A recorded game from a fixed camera → (frames (N, H, W, 3) uint8,
-    corners (4, 2) float32): ``empty_leadin`` frames of the empty board,
-    then ``frames_per_move`` frames after each move. Each board state is
-    rendered once; every frame gets its own sensor noise."""
+                corners: np.ndarray | None = None, workers: int = 1):
+    """A recorded game → (frames (N, H, W, 3) uint8, corners float32):
+    ``empty_leadin`` frames of the empty board, then ``frames_per_move``
+    frames after each move; every frame gets its own sensor noise.
+
+    ``corners`` (4, 2), or ``default_corners`` if None, is a fixed camera:
+    each board state is rendered once. ``corners`` (N, 4, 2) is a camera
+    that moves (``handheld_corners`` makes a drifting, rotating or zooming
+    one): every frame is rendered at its own pose, ``workers`` threads at a
+    time (numpy drops the interpreter lock inside its array operations).
+    """
     if corners is None:
         corners = default_corners(frame_hw)
     corners = np.asarray(corners, np.float32)
     rng = np.random.default_rng(seed)
     states = [(np.zeros((gsize, gsize), np.int8), empty_leadin)]
     states += [(s, frames_per_move) for s in game_states(moves, gsize)]
-    frames = np.empty((sum(k for _, k in states),) + tuple(frame_hw) + (3,),
-                      np.uint8)
-    i = 0
-    for labels, k in states:
-        img = _render_clean(labels, corners, frame_hw)
-        for _ in range(k):
+    n = sum(k for _, k in states)
+    frames = np.empty((n,) + tuple(frame_hw) + (3,), np.uint8)
+    if corners.ndim == 2:
+        i = 0
+        for labels, k in states:
+            img = _render_clean(labels, corners, frame_hw)
+            for _ in range(k):
+                frames[i] = _noisy(img, rng, noise)
+                i += 1
+        return frames, corners
+    if corners.shape != (n, 4, 2):
+        raise ValueError(f"a moving camera needs ({n}, 4, 2) corners, one "
+                         f"set per frame, got {corners.shape}")
+    labels_of = [labels for labels, k in states for _ in range(k)]
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        clean = pool.map(lambda i: _render_clean(labels_of[i], corners[i],
+                                                 frame_hw), range(n))
+        for i, img in enumerate(clean):          # in order: the seeded noise
             frames[i] = _noisy(img, rng, noise)
-            i += 1
     return frames, corners
+
+
+def handheld_corners(n: int, frame_hw=(720, 1280), drift=(12.0, 9.0),
+                     periods=(7.0, 9.0), rate_deg: float = 0.0,
+                     scale_rate: float = 0.0) -> np.ndarray:
+    """(n, 4, 2) float32 corners of a camera held in the hand: frame t sees
+    ``default_corners`` turned by ``t·rate_deg`` degrees and scaled by
+    ``(1 + scale_rate)^t`` about their center, then moved by
+    (drift_x·sin(t/period_x), drift_y·cos(t/period_y)) px."""
+    base = default_corners(frame_hw)
+    c0 = base.mean(axis=0)
+    out = np.empty((n, 4, 2), np.float32)
+    for t in range(n):
+        th = np.deg2rad(rate_deg) * t
+        rot = np.array([[np.cos(th), -np.sin(th)],
+                        [np.sin(th), np.cos(th)]], np.float32)
+        move = np.array([drift[0] * np.sin(t / periods[0]),
+                         drift[1] * np.cos(t / periods[1])], np.float32)
+        out[t] = c0 + (1.0 + scale_rate) ** t * (base - c0) @ rot.T + move
+    return out

@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``camkifu_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes the paths give it, then drives three paths
+PyTorch version at the shapes the paths give it, then drives four paths
 once each, counting kernel launches per path:
 
 - the still path: one board detection on a 1080p still
@@ -14,7 +14,12 @@ once each, counting kernel launches per path:
 - the recorded-video path: a seeded 10-move game from a fixed camera at
   720p through ``filecheck.run_pipeline`` with automatic board detection
   (``detect_batch_stable``, then the ``sf_meta`` vote scan) to its moves;
-- the full redetect: ``detect_batch`` on 64 drifting 1080p frames.
+- the full redetect: ``detect_batch`` on 64 drifting 1080p frames;
+- the handheld path: a seeded 10-move game from a drifting 720p camera,
+  one ``detect_corners`` and then ``sf_meta.track_read_batch`` in batches
+  of 16 (per-frame tracking, rectification, classification, vote scan) to
+  its moves, with every synchronizing call an error from the second batch
+  on; then the same engine once at full width, 128 × 1080p.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -101,6 +106,22 @@ REDETECT_DRIFT = 3.0
 #: Frames that detect_batch_stable detects on the film path (8 of the
 #: first batch): the edge kernel's N = 16 and the Hough kernel's B = 8.
 FILM_DETECT_FRAMES = 8
+#: The handheld game: tests/test_tracking.py's (10 moves, vote window + 3
+#: frames a move, a camera drifting by (12 sin(t/7), 9 cos(t/9)) px at
+#: 720p) in batches of 16, each one chunk; tracked corners must stay within
+#: 0.15 cell of the truth. Frames of it that also go through the CPU.
+HANDHELD_HW = (720, 1280)
+HANDHELD_MOVES = 10
+HANDHELD_BATCH = 16
+HANDHELD_TOL_CELLS = 0.15
+HANDHELD_CPU_FRAMES = 32
+HANDHELD_RENDER_THREADS = 8
+#: bench.py's c4: 128 × 1080p through track_read_batch, 16 frames a chunk;
+#: the unfused pair tracks on 8-frame chunks (track_corners_batch's and
+#: warp_batch_chunked's default).
+C4_BATCH = 128
+C4_CHUNK = 16
+UNFUSED_CHUNK = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -704,6 +725,17 @@ def phase_film(dev) -> dict:
     return {"frames": frames, "corners": corners, "launches": counts}
 
 
+def _drift_labels() -> "np.ndarray":
+    """The drifting frames' board: 40 stones, seed 1."""
+    import numpy as np
+
+    labels = np.zeros((19, 19), np.int8)
+    idx = np.random.default_rng(1).choice(361, 40, replace=False)
+    labels.flat[idx[::2]] = 1
+    labels.flat[idx[1::2]] = 2
+    return labels
+
+
 def _drift_frames(dev):
     """``REDETECT_RENDERS`` 1080p stills whose corners drift ±3 px (as
     tests/test_detect_shared.py makes them), tiled to ``REDETECT_BATCH``
@@ -713,10 +745,7 @@ def _drift_frames(dev):
 
     from camkifu_tpu_torch.utils.still import default_corners, render_still
 
-    labels = np.zeros((19, 19), np.int8)
-    idx = np.random.default_rng(1).choice(361, 40, replace=False)
-    labels.flat[idx[::2]] = 1
-    labels.flat[idx[1::2]] = 2
+    labels = _drift_labels()
     base = default_corners(FRAME_HW)
     renders, truth = [], []
     for i in range(REDETECT_RENDERS):
@@ -764,8 +793,8 @@ def phase_redetect(dev) -> dict:
              "the edge kernel did not take the whole batch at once")
     _require(max(counts["hough"][1]) == REDETECT_BATCH,
              "the Hough kernel did not take the whole batch at once")
-    return {"frames": frames, "launches": counts, "grays": grays,
-            "quads": quads}
+    return {"frames": frames, "truth": truth, "launches": counts,
+            "grays": grays, "quads": quads}
 
 
 def phase_batch_kernels(redetect: dict, film: dict, dev) -> list[dict]:
@@ -942,6 +971,247 @@ def phase_film_times(film: dict, redetect: dict, dev, card: str) -> dict:
     return {"fps": fps, "ms": med}
 
 
+def phase_handheld(dev) -> dict:
+    """The handheld path once: a seeded game from a drifting 720p camera,
+    one detection, then ``track_read_batch`` batch by batch; from the
+    second batch on any call that makes the host wait for the card is an
+    error. Then its first frames through ``device="cpu"``."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.core.gamesync import MoveExtractor, score_moves
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import (handheld_corners, render_game,
+                                                sample_moves)
+
+    t0 = time.perf_counter()
+    moves = sample_moves(HANDHELD_MOVES, seed=5)
+    fpm = cvconf.vote_window + 3
+    n_frames = 6 + HANDHELD_MOVES * fpm
+    truth = handheld_corners(n_frames, HANDHELD_HW)
+    frames, _ = render_game(moves, fpm, frame_hw=HANDHELD_HW, seed=5,
+                            empty_leadin=6, corners=truth,
+                            workers=HANDHELD_RENDER_THREADS)
+    t_render = time.perf_counter() - t0
+
+    def batches():
+        for lo in range(0, n_frames, HANDHELD_BATCH):
+            fb = frames[lo:lo + HANDHELD_BATCH]
+            n = fb.shape[0]
+            if n < HANDHELD_BATCH:            # capture padding
+                fb = np.concatenate(
+                    [fb, np.repeat(fb[-1:], HANDHELD_BATCH - n, 0)])
+            yield lo, n, torch.from_numpy(fb)
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    seed0, score = bf_auto.detect_corners(torch.from_numpy(frames[0]).to(dev))
+    detect_warps = warp_kernel.launches
+    state = sf_meta.init_state(device=dev)
+    seed = seed0
+    ex = MoveExtractor()
+    corners, sharps, first = [], [], {}
+    try:
+        for lo, n, fb in batches():
+            fb = fb.to(dev)
+            torch.cuda.synchronize()
+            if lo:
+                torch.cuda.set_sync_debug_mode("error")
+            out = sf_meta.track_read_batch(state, fb, seed, chunk=C4_CHUNK,
+                                           valid_count=n)
+            torch.cuda.set_sync_debug_mode("default")
+            state, labels, _, _, cs, sharp, _, seed = out
+            if lo < HANDHELD_CPU_FRAMES:
+                first[lo] = (labels.cpu(), cs.cpu())
+            corners.append(cs[:n].cpu().numpy())
+            sharps.append(sharp[:n].cpu().numpy())
+            for lab in labels[:n].cpu().numpy():
+                ex.advance(lab)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    t_run = time.perf_counter() - t0
+    n_chunks = -(-n_frames // HANDHELD_BATCH) * -(-HANDHELD_BATCH // C4_CHUNK)
+    report = score_moves(ex.moves, moves)
+    cell = float(np.linalg.norm(truth[0][1] - truth[0][0]) / 18)
+    err_cells = float(np.abs(np.concatenate(corners) - truth).max()) / cell
+    sharp_min = float(np.concatenate(sharps).min())
+    print(f"handheld path: {n_frames} frames {HANDHELD_HW[0]}p in batches of "
+          f"{HANDHELD_BATCH}, seed score {float(score):.4f}, "
+          f"{report['good']}/{report['ref_moves']} moves right, agreement "
+          f"{report['agreement']}, tracked corners within {err_cells:.4f} "
+          f"cell of the truth (tol {HANDHELD_TOL_CELLS}), sharpness min "
+          f"{sharp_min:.3f} (gate {bf_auto.TRACK_MIN_SHARPNESS}), no host "
+          f"wait in track_read_batch from the second batch on, launches "
+          f"{counts} of which the tracker's warp "
+          f"{counts['warp'][0] - detect_warps} in {n_chunks} chunks (render "
+          f"{t_render:.1f} s, run {t_run:.1f} s)", flush=True)
+    _require(float(score) > 0.1, "handheld: detection score too low")
+    _require(report["agreement"] == 1.0, "the handheld game was misread")
+    _require(err_cells < HANDHELD_TOL_CELLS,
+             "handheld: tracked corners off the ground truth")
+    _require(sharp_min >= bf_auto.TRACK_MIN_SHARPNESS,
+             "handheld: a frame's correlation was rejected")
+    _require_launched(counts, "handheld")
+    _require(counts["warp"][0] - detect_warps == n_chunks,
+             "handheld: the warp kernel was not launched once per chunk")
+
+    # The first batches through device="cpu": the same seed, the plain warp.
+    t0 = time.perf_counter()
+    st = sf_meta.init_state(device="cpu")
+    sd = seed0.cpu()
+    d_px, same = 0.0, True
+    for lo, n, fb in batches():
+        if lo >= HANDHELD_CPU_FRAMES:
+            break
+        st, lab_c, _, _, cs_c, _, _, sd = sf_meta.track_read_batch(
+            st, fb, sd, chunk=C4_CHUNK, valid_count=n)
+        d_px = max(d_px, float((cs_c - first[lo][1]).abs().max()))
+        same = same and torch.equal(lab_c, first[lo][0])
+    print(f"handheld, device=\"cpu\" on the first {HANDHELD_CPU_FRAMES} "
+          f"frames: corners within {d_px:.4f} px of the card's (tol "
+          f"{TOL_CPU_PX}), labels {'equal' if same else 'DIFFER'} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    _require(d_px < TOL_CPU_PX, "handheld: card and CPU corners disagree")
+    _require(same, "handheld: card and CPU labels disagree")
+    return {"launches": counts}
+
+
+def _c4_inputs(redetect: dict):
+    """bench.py's c4 input at full width: the redetect's 64 drifting 1080p
+    frames twice, and each frame's true corners."""
+    import numpy as np
+    import torch
+
+    reps = C4_BATCH // REDETECT_BATCH
+    return (torch.cat([redetect["frames"]] * reps),
+            np.concatenate([redetect["truth"]] * reps))
+
+
+def phase_handheld_kernels(redetect: dict) -> list[dict]:
+    """The warp kernel against its plain version at the handheld path's
+    three shapes: the fused engine's canvas (16 × 1080p RGB → 336²), the
+    unfused tracker's gray canvas (8 × 1080p → 320²) and
+    ``warp_batch_chunked``'s chunk (8 × 1080p RGB → 304²)."""
+    import torch
+
+    from camkifu_tpu_torch.board.bf_auto import (REFINE_RES, TRACK_MARGIN,
+                                                  _rect_H)
+    from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.ops.warp import (canonical_corners, homography_dlt,
+                                             square)
+
+    frames, truth = _c4_inputs(redetect)
+    dev = frames.device
+    scale = 1.0 / 255.0
+    seed = torch.from_numpy(truth[0]).to(dev)
+    fused = frames[:C4_CHUNK]
+    chunk = frames[:UNFUSED_CHUNK]
+    grays = rgb_to_gray_u8(chunk)[..., None].contiguous()
+    med = torch.quantile(torch.from_numpy(truth[:UNFUSED_CHUNK]).to(dev),
+                         0.5, dim=0)
+    # The fused canvas: 304² and a cell's margin around it (336²), the
+    # seed's corner intersections on the centers of the corner cells.
+    shapes = (
+        ("handheld canvas", fused, (336, 336), scale,
+         homography_dlt(square(16.0 + 7.5, 16.0 + 304.0 - 8.5, dev), seed)),
+        ("handheld gray canvas", grays, (REFINE_RES,) * 2, scale,
+         _rect_H(seed, TRACK_MARGIN, REFINE_RES)),
+        ("handheld chunked", chunk, (304, 304), scale,
+         homography_dlt(canonical_corners(device=dev), med)),
+    )
+    cases = []
+    for path, x, hw, sc, H in shapes:
+        H = H.contiguous()
+        err = _check_warp(x, H, hw, f" ({path})")
+        cases.append(_case(
+            "warp", f"{tuple(x.shape)} u8 → {hw[0]}²×{x.shape[-1]}", path,
+            lambda x=x, H=H, hw=hw: warp_kernel.warp_homography(x, H, hw, sc),
+            lambda x=x, H=H, hw=hw: warp_kernel.warp_homography_ref(
+                x, H, hw, sc),
+            err, bound_warp(x, hw),
+            library=lambda x=x, H=H, hw=hw: grid_sample_case(x, H, hw, sc)))
+    return cases
+
+
+def phase_handheld_times(redetect: dict, card: str) -> dict:
+    """c4 at full width: one counted and checked call, then CUDA-event
+    times of c4 (``detect_corners`` + ``track_read_batch``), of
+    ``track_read_batch`` alone, and of the unfused pair
+    (``track_corners_batch`` + ``read_batch``)."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.stone import sf_meta
+
+    frames, truth = _c4_inputs(redetect)
+    dev = frames.device
+    state0 = sf_meta.init_state(device=dev)
+
+    def c4():
+        seed, _ = bf_auto.detect_corners(frames[0])
+        return sf_meta.track_read_batch(state0, frames, seed, chunk=C4_CHUNK)
+
+    _reset_counts()
+    seed, score = bf_auto.detect_corners(frames[0])
+    detect_warps = warp_kernel.launches
+    out = sf_meta.track_read_batch(state0, frames, seed, chunk=C4_CHUNK)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _, labels, conf, _, cs, sharp, _, _ = out
+    cell = float(np.linalg.norm(truth[0][1] - truth[0][0]) / 18)
+    err_cells = float(np.abs(cs.cpu().numpy() - truth).max()) / cell
+    tracker_warps = counts["warp"][0] - detect_warps
+    print(f"c4 at full width: {tuple(frames.shape)}, chunk {C4_CHUNK}, seed "
+          f"score {float(score):.4f}, tracked corners within "
+          f"{err_cells:.4f} cell of the truth (tol {HANDHELD_TOL_CELLS}), "
+          f"sharpness min {float(sharp.min()):.3f}, launches {counts} of "
+          f"which the tracker's warp {tracker_warps}", flush=True)
+    _require(labels.shape == (C4_BATCH, 19, 19) and cs.shape
+             == (C4_BATCH, 4, 2), "c4: wrong output shapes")
+    _require(bool(torch.isfinite(conf).all() & torch.isfinite(cs).all()),
+             "c4: non-finite output")
+    _require(err_cells < HANDHELD_TOL_CELLS,
+             "c4: tracked corners off the ground truth")
+    _require(float(sharp.min()) >= bf_auto.TRACK_MIN_SHARPNESS,
+             "c4: a frame's correlation was rejected")
+    _require_launched(counts, "c4")
+    _require(tracker_warps == C4_BATCH // C4_CHUNK,
+             "c4: the warp kernel was not launched once per chunk")
+
+    def unfused():
+        cs_u, _, _, _ = bf_auto.track_corners_batch(frames, seed,
+                                                    chunk=UNFUSED_CHUNK)
+        return sf_meta.read_batch(state0, frames, cs_u)
+
+    # Both engines' votes settle on the board that was drawn.
+    board = torch.from_numpy(_drift_labels()).to(dev)
+    _require(torch.equal(labels[-1], board), "c4: the board was misread")
+    _require(torch.equal(unfused()[1][-1], board),
+             "c4: the unfused pair misread the board")
+    runs = {
+        "c4": _cuda_ms_runs(c4, reps=10),
+        "track_read": _cuda_ms_runs(lambda: sf_meta.track_read_batch(
+            state0, frames, seed, chunk=C4_CHUNK), reps=10),
+        "unfused": _cuda_ms_runs(unfused, reps=10),
+    }
+    med = {k: _median(v) for k, v in runs.items()}
+    fps = {k: C4_BATCH / med[k] * 1e3 for k in runs}
+    print(f"times on {card}, median of 10 calls [min, max], {C4_BATCH} x "
+          f"{FRAME_HW[0]}p: " + ", ".join(
+              f"{k} {med[k]:.3f} ms [{v[0]:.3f}, {v[-1]:.3f}] = "
+              f"{fps[k]:.1f} frames/s" for k, v in runs.items())
+          + "; both engines read the board exactly", flush=True)
+    return {"fps": fps, "ms": med}
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -1012,6 +1282,10 @@ def run_phases(dev, card: str) -> dict:
     batch_cases = phase_batch_kernels(redetect, film, dev)
     print(f"redetect phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    handheld = phase_handheld(dev)
+    batch_cases += phase_handheld_kernels(redetect)
+    print(f"handheld phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     phase_kernel_times(batch_cases, card)
     print(f"batch kernel times {time.perf_counter() - t0:.1f} s", flush=True)
     cases += [_numbers_only(c) for c in batch_cases]
@@ -1020,15 +1294,22 @@ def run_phases(dev, card: str) -> dict:
     tf = phase_film_times(film, redetect, dev, card)
     print(f"film and redetect times {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    th = phase_handheld_times(redetect, card)
+    print(f"handheld times {time.perf_counter() - t0:.1f} s", flush=True)
     paths = {"still": run["launches"], "film": film["launches"],
-             "redetect": redetect["launches"]}
+             "redetect": redetect["launches"],
+             "handheld": handheld["launches"]}
     return {"kernels": [_kernel_entry(name, source, replaces, cases, paths)
                         for name, (source, replaces) in SOURCES.items()],
             "summary": {"c1_ms": t["c1_ms"],
                         "c2_fps": BATCH / t["c2_ms"] * 1e3,
                         "c3_fps": tf["fps"]["c3"],
                         "redetect_fps": tf["fps"]["redetect"],
-                        "film_fps": tf["fps"]["film"]}}
+                        "film_fps": tf["fps"]["film"],
+                        "c4_fps": th["fps"]["c4"],
+                        "c4_track_read_fps": th["fps"]["track_read"],
+                        "c4_unfused_fps": th["fps"]["unfused"]}}
 
 
 def main() -> int:

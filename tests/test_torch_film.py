@@ -296,8 +296,8 @@ def test_state_surgery_matches_jax():
 def test_read_batch_refuses_what_is_not_ported():
     state = sf_meta.init_state(device="cpu")
     frames = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="tracking"):
-        sf_meta.read_batch(state, frames, torch.zeros((2, 4, 2)))
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        sf_meta.read_batch(state, frames, torch.zeros((4, 2)), lens=object())
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         sf_meta.read_batch(state, frames, torch.zeros((4, 2)),
                            neural_params={})

@@ -11,7 +11,8 @@ import torch
 
 from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
     hysteresis_kernel, warp_kernel
-from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
+from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt, \
+    square
 from camkifu_tpu_torch.utils.still import default_corners, render_still
 
 pytestmark = pytest.mark.gpu
@@ -413,3 +414,102 @@ def test_warp_kernel_bitwise_at_odd_shapes(c, out_hw):
         ref = warp_kernel.warp_homography_ref(frames, hm, out_hw, 1 / 255)
         torch.cuda.synchronize()
         assert torch.equal(ours, ref)
+
+
+@pytest.mark.parametrize("shape", ["fused canvas", "gray canvas", "chunked"])
+def test_warp_kernel_equals_plain_at_the_tracker_shapes(shape):
+    """The handheld path's three warps at 1080p: the fused engine's canvas
+    (16 frames RGB → 336²), the unfused tracker's gray canvas (8 frames →
+    320²), ``warp_batch_chunked``'s chunk (8 frames RGB → 304²)."""
+    from camkifu_tpu_torch.board import bf_auto
+
+    dev = _device()
+    hw = (1080, 1920)
+    corners = torch.from_numpy(default_corners(hw)).to(dev) + 1.75
+    if shape == "fused canvas":
+        frames = _frames(dev, 16, hw)
+        H = homography_dlt(square(23.5, 311.5, dev), corners)
+        out_hw = (336, 336)
+    elif shape == "gray canvas":
+        frames = _frames(dev, 8, hw)[..., 1:2].contiguous()
+        H = bf_auto._rect_H(corners, bf_auto.TRACK_MARGIN, 320)
+        out_hw = (320, 320)
+    else:
+        frames = _frames(dev, 8, hw)
+        H = homography_dlt(canonical_corners(device=dev), corners)
+        out_hw = (304, 304)
+    H = H.contiguous()
+    before = warp_kernel.launches
+    ours = warp_kernel.warp_homography(frames, H, out_hw, 1 / 255)
+    assert warp_kernel.launches == before + 1
+    ref = warp_kernel.warp_homography_ref(frames, H, out_hw, 1 / 255)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, ref)
+
+
+def test_track_read_batch_on_the_card_matches_the_cpu_and_never_waits():
+    """32 frames of a drifting 720p board: the card and ``device="cpu"``
+    agree (corners within 0.5 px, labels equal), the warp kernel runs once
+    a chunk, and on a warm second call every synchronizing call is an
+    error: there is none."""
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import handheld_corners
+
+    dev = _device()
+    hw = (720, 1280)
+    labels = np.zeros((19, 19), np.int8)
+    labels[3, 3] = 1
+    labels[15, 15] = 2
+    truth = handheld_corners(32, hw)
+    frames = np.stack([render_still(labels, hw, seed=t, corners=c)[0]
+                       for t, c in enumerate(truth)])
+    fb, seed = torch.from_numpy(frames), torch.from_numpy(truth[0])
+    out_c = sf_meta.track_read_batch(sf_meta.init_state(device="cpu"), fb,
+                                     seed)
+    state0 = sf_meta.init_state()
+    assert state0.votes.is_cuda                  # the default device
+    fb_d, seed_d = fb.to(dev), seed.to(dev)
+    before = warp_kernel.launches
+    out_d = sf_meta.track_read_batch(state0, fb_d, seed_d)
+    assert warp_kernel.launches == before + 2    # 32 frames, 16 a chunk
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sf_meta.track_read_batch(state0, fb_d, seed_d, valid_count=30)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(t.is_cuda for t in out_d[1:])
+    assert torch.equal(out_d[1].cpu(), out_c[1])
+    assert torch.equal(again[1][:30], out_d[1][:30])
+    assert float((out_d[4].cpu() - out_c[4]).abs().max()) < 0.5
+    assert float((out_d[7].cpu() - out_c[7]).abs().max()) < 0.5
+    cell = float(np.linalg.norm(truth[0][1] - truth[0][0]) / 18)
+    assert np.abs(out_d[4].cpu().numpy() - truth).max() < 0.15 * cell
+    assert int(out_d[1][-1].ne(0).sum()) == 2    # both stones committed
+
+
+def test_unfused_tracker_and_chunked_warp_on_the_card_match_the_cpu():
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops.warp import warp_batch_chunked
+    from camkifu_tpu_torch.utils.still import handheld_corners
+
+    dev = _device()
+    hw = (720, 1280)
+    labels = np.zeros((19, 19), np.int8)
+    labels[9, 9] = 1
+    truth = handheld_corners(12, hw)
+    frames = np.stack([render_still(labels, hw, seed=t, corners=c)[0]
+                       for t, c in enumerate(truth)])
+    fb, seed = torch.from_numpy(frames), torch.from_numpy(truth[0])
+    cs_c, sharp_c, _, _ = bf_auto.track_corners_batch(fb, seed)
+    before = warp_kernel.launches
+    cs_d, sharp_d, _, _ = bf_auto.track_corners_batch(fb.to(dev),
+                                                      seed.to(dev))
+    assert warp_kernel.launches == before + 2    # 12 frames, 8 a chunk
+    assert float((cs_d.cpu() - cs_c).abs().max()) < 0.5
+    assert torch.allclose(sharp_d.cpu(), sharp_c, rtol=1e-3)
+    canon_c = warp_batch_chunked(fb, cs_c, scale=1 / 255)
+    canon_d = warp_batch_chunked(fb.to(dev), cs_c.to(dev), scale=1 / 255)
+    assert canon_d.shape == (12, 304, 304, 3)
+    assert float((canon_d.cpu() - canon_c).abs().max()) < 1e-4

@@ -7,12 +7,19 @@ own: the still path's ``detect_corners`` on a 1080p still and
 ``read_board_batch`` of 128 copies of it; the recorded-video path's
 ``sf_meta.read_batch`` of 128 720p game frames (c3); and the full
 redetect's ``detect_batch`` on 64 drifting 1080p frames, with its stage 1
-(``_detect_prepare_batch``) and one chunk's shared refine apart. For each
-stage it prints the host wall time per call, the device kernel time, the
-device's busy share of the wall window, the number of kernels launched,
+(``_detect_prepare_batch``) and one chunk's shared refine apart; and the
+handheld path (c4): ``sf_meta.track_read_batch`` of those frames twice
+(128 × 1080p, 16 a chunk), with its tracker (``rectify_track_batch``),
+its vote scan's share and the unfused pair (``track_corners_batch`` +
+``read_batch``) apart. For each stage it prints the host wall time per
+call, the device kernel time, the device's busy share of the wall window,
+the number of kernels launched, the host's waits for the device (its
+synchronizing runtime calls, less the profiler's opening synchronize and
+the window's closing one; a blocking copy to or from the device is one),
 and the top kernels by device time. Needs a CUDA device; exits 1 without
 one.
 """
+
 
 from __future__ import annotations
 
@@ -22,6 +29,13 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+#: CUDA runtime calls in which the host waits for the device, and how many
+#: of them a profiled window makes itself: the profiler synchronizes when it
+#: starts, the window when it ends (an empty stage reads 0 with these 2).
+WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+OWN_WAITS = 2
 
 
 def _profile(name, fn, reps, trace=None):
@@ -47,10 +61,13 @@ def _profile(name, fn, reps, trace=None):
             busy += e - max(s, end)
             end = e
     total = sum(e.time_range.elapsed_us() for e in kernels)
+    waits = sum(e.name in WAIT_CALLS for e in prof.events()) - OWN_WAITS
+    d2h = sum("Memcpy DtoH" in e.name for e in kernels)
     print(f"{name}: {wall_us / reps / 1e3:.3f} ms/call host wall, "
           f"{total / reps / 1e3:.3f} ms/call device kernels, device busy "
           f"{busy / wall_us:.3f} of the window, {len(kernels) / reps:.0f} "
-          f"device ops/call", flush=True)
+          f"device ops/call, {waits / reps:.1f} host waits/call "
+          f"({d2h / reps:.1f} device-to-host copies)", flush=True)
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
@@ -118,6 +135,29 @@ def main() -> int:
              lambda: bf_auto._refine_shared_batch(grays[:chunk], med,
                                                   quads[:chunk]),
              3, args.trace)
+    del grays, quads
+
+    c4 = torch.cat([drift, drift])
+    del drift
+    seed, _ = bf_auto.detect_corners(c4[0])
+    state = sf_meta.init_state(device=c4.device)
+    chunk = chip_smoke.C4_CHUNK
+    _profile("c4_track_read128",
+             lambda: sf_meta.track_read_batch(state, c4, seed, chunk=chunk),
+             3, args.trace)
+    _profile("c4_rectify_track128",
+             lambda: bf_auto.rectify_track_batch(c4, seed, chunk=chunk), 3,
+             args.trace)
+    _profile("c4_rectify_track_chunk16",
+             lambda: bf_auto.rectify_track_batch(c4[:chunk], seed,
+                                                 chunk=chunk), 3, args.trace)
+
+    def unfused():
+        cs, _, _, _ = bf_auto.track_corners_batch(
+            c4, seed, chunk=chip_smoke.UNFUSED_CHUNK)
+        return sf_meta.read_batch(state, c4, cs)
+
+    _profile("c4_unfused128", unfused, 3, args.trace)
     return 0
 
 
