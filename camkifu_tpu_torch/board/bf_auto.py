@@ -801,6 +801,89 @@ def detect_corners(frame: torch.Tensor, res: int = cvconf.bf_resolution,
     return corners, score
 
 
+def _gsize_probe(frame: torch.Tensor, res: int = cvconf.bf_resolution,
+                 gsize: int = 19):
+    """Full detection at a candidate gsize, scored by a PITCH-SENSITIVE
+    quality: the winner's per-axis lattice-profile energy at its gsize
+    tooth positions MINUS the energy at its between-teeth midpoints →
+    (corners (4, 2), score, quality).
+
+    A denser impostor's teeth fall mostly between the profile's peaks, and
+    a sparser one's midpoints land on the lines it skipped, so only the
+    true pitch scores peak minus wood. Profiles are per-axis max-normalized
+    (``_prep_profile``), so sizes compare directly.
+    """
+    gray, quad, score = _detect_prepare(frame, res)
+    return _gsize_quality(gray, quad, score, gsize)
+
+
+def _gsize_quality(gray: torch.Tensor, quad: torch.Tensor, score,
+                   gsize: int):
+    """Stages 2–3 of ``_gsize_probe`` on a stage-1 result, and the
+    quality of the corners they find."""
+    corners = _detect_refine(gray, quad, score, gsize, 1)
+    H, col_profile, row_profile, _ = _rect_profiles_rect(gray, corners,
+                                                         gsize)
+    n = col_profile.shape[0]
+    dev = gray.device
+    # Tooth positions from the corners' ACTUAL rect coordinates (the margin
+    # expansion happens in frame space, so the inset is only approximately
+    # static under perspective).
+    rc = apply_homography(_inv3(H), corners)                 # (4, 2)
+    idx = torch.arange(gsize, dtype=torch.float32, device=dev) \
+        / (gsize - 1.0)
+    midx = (torch.arange(gsize - 1, dtype=torch.float32, device=dev)
+            + 0.5) / (gsize - 1.0)
+
+    def taps(profile, pos):
+        pos = torch.clamp(pos, 0.0, n - 1.001)
+        i0f = torch.floor(pos)
+        w = pos - i0f
+        # A NaN position (singular corners) reads bin 0 with a NaN weight:
+        # the quality is NaN and the probe fails, as in the reference.
+        i0 = torch.nan_to_num(i0f, nan=0.0).long()
+        return profile[i0] * (1 - w) + profile[i0 + 1] * w
+
+    q = torch.zeros((), dtype=torch.float32, device=dev)
+    for profile, a0, a1 in ((col_profile, (rc[0, 0] + rc[3, 0]) * 0.5,
+                             (rc[1, 0] + rc[2, 0]) * 0.5),
+                            (row_profile, (rc[0, 1] + rc[1, 1]) * 0.5,
+                             (rc[3, 1] + rc[2, 1]) * 0.5)):
+        teeth = a0 + (a1 - a0) * idx
+        mids = a0 + (a1 - a0) * midx
+        # ±2 px tolerance on teeth (profile peaks are 1–2 px wide); the
+        # midpoints get a plain tap (a sparse impostor's sit ON lines).
+        tooth_e = torch.stack([taps(profile, teeth + d) for d in
+                               (-2.0, -1.0, 0.0, 1.0, 2.0)]).amax(dim=0)
+        q = q + tooth_e.mean() - taps(profile, mids).mean()
+    return corners, score, 0.5 * q
+
+
+def infer_gsize(frame: torch.Tensor, candidates: tuple[int, ...] = (9, 13, 19),
+                res: int = cvconf.bf_resolution) -> tuple[int, dict]:
+    """Infer the board size from one frame (``--gsize auto``).
+
+    Runs detection once per candidate size and compares each winner's
+    pitch-sensitive lattice quality (``_gsize_probe``). Stage 1 does not
+    depend on the size, so it runs once; each candidate refines on its
+    result, and the numbers are those of separate probes. Reads each
+    candidate's score and quality on the host.
+
+    Returns (gsize, qualities): qualities maps each candidate to its
+    quality (−1.0 where detection failed: score < 0.1 or a non-finite
+    quality); gsize is 0 when no candidate found a board at all — callers
+    choose their own default.
+    """
+    gray, quad, score = _detect_prepare(frame, res)
+    quals: dict[int, float] = {}
+    for g in candidates:
+        _, sc, q = _gsize_quality(gray, quad, score, int(g))
+        sc, q = float(sc), float(q)
+        quals[int(g)] = q if sc >= 0.1 and np.isfinite(q) else -1.0
+    best = max(quals, key=lambda g: quals[g])
+    return (best if quals[best] > 0.0 else 0), quals
+
+
 # ---------------------------------------------------------------------------
 # Batched redetection: stage 1 for the whole batch, then per-chunk refines
 # on a chunk-shared rectification canvas, per-frame refines where a chunk
@@ -1008,16 +1091,19 @@ TRACK_ABS_DEADBAND = 0.12
 
 
 def _profile_shift(profile: torch.Tensor, delta) -> torch.Tensor:
-    """Translate a 1D profile by ``delta`` (sub-pixel, edge-clamped)."""
-    n = profile.shape[0]
+    """Translate a 1D profile by ``delta`` (sub-pixel, edge-clamped).
+    Profiles (..., n) take a ``delta`` of their leading dims."""
+    n = profile.shape[-1]
     return _interp1d_hat(
         profile,
-        torch.arange(n, dtype=torch.float32, device=profile.device) + delta)
+        torch.arange(n, dtype=torch.float32, device=profile.device)
+        + _col(delta))
 
 
 def _corr_shift(profiles: torch.Tensor, ref: torch.Tensor, S: int):
     """(B, n) profiles × (n,) reference → per-frame sub-pixel translation +
-    correlation-peak sharpness, via one (B, n)×(n, 2S+1) product.
+    correlation-peak sharpness, via one (B, n)×(n, 2S+1) product. Leading
+    dims (..., B, n) × (..., n) are streams, each with its own reference.
 
     corr[s] pairs p[i] with ref[i + s − S]: a peak at s means the profile
     is the reference translated RIGHT by d = S − s. Ties take the first
@@ -1025,27 +1111,28 @@ def _corr_shift(profiles: torch.Tensor, ref: torch.Tensor, S: int):
     """
     n = profiles.shape[-1]
     n_sh = 2 * S + 1
-    shifted = F.pad(ref, (S, S)).unfold(0, n, 1)            # (2S+1, n)
-    corr = profiles @ shifted.T                             # (B, 2S+1)
-    best = torch.argmax(corr, dim=1, keepdim=True)
-    c0 = torch.gather(corr, 1, best)[:, 0]
-    cm = torch.gather(corr, 1, torch.clamp(best - 1, 0, n_sh - 1))[:, 0]
-    cp = torch.gather(corr, 1, torch.clamp(best + 1, 0, n_sh - 1))[:, 0]
+    shifted = F.pad(ref, (S, S)).unfold(-1, n, 1)           # (..., 2S+1, n)
+    corr = profiles @ shifted.transpose(-1, -2)             # (..., B, 2S+1)
+    best = torch.argmax(corr, dim=-1, keepdim=True)
+    c0 = torch.gather(corr, -1, best)[..., 0]
+    cm = torch.gather(corr, -1, torch.clamp(best - 1, 0, n_sh - 1))[..., 0]
+    cp = torch.gather(corr, -1, torch.clamp(best + 1, 0, n_sh - 1))[..., 0]
     den = cm - 2 * c0 + cp
     sub = torch.where(torch.abs(den) > 1e-9,
                       torch.clamp(0.5 * (cm - cp) / den, -1, 1), 0.0)
-    d = S - (best[:, 0].to(torch.float32) + sub)
-    sharp = c0 / torch.clamp(corr.mean(dim=1), min=1e-6)
+    d = S - (best[..., 0].to(torch.float32) + sub)
+    sharp = c0 / torch.clamp(corr.mean(dim=-1), min=1e-6)
     return d, sharp
 
 
 def _hold_bad(d: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Replace rejected per-frame measurements (chunk,) with the last good
-    one, 0 before the first: a running maximum over the good frames'
+    """Replace rejected per-frame measurements (..., chunk) with the last
+    good one, 0 before the first: a running maximum over the good frames'
     indices, then a gather."""
-    idx = torch.arange(d.shape[0], device=d.device)
-    last = torch.cummax(torch.where(ok, idx, -1), dim=0).values
-    return torch.where(last >= 0, d[torch.clamp(last, min=0)], 0.0)
+    idx = torch.arange(d.shape[-1], device=d.device)
+    last = torch.cummax(torch.where(ok, idx, -1), dim=-1).values
+    return torch.where(last >= 0,
+                       torch.gather(d, -1, torch.clamp(last, min=0)), 0.0)
 
 
 def _lattice_offset(profile: torch.Tensor, first, pitch, gsize: int,
@@ -1056,16 +1143,17 @@ def _lattice_offset(profile: torch.Tensor, first, pitch, gsize: int,
     The content-reference correlation measures only RELATIVE motion, so a
     seed error would persist as a constant corner offset; correlating
     against a synthetic comb TEMPLATE of the expected lattice measures the
-    absolute residual once per chunk. Returns (offset, sharpness).
+    absolute residual once per chunk. Profiles (..., n) take ``first`` of
+    their leading dims. Returns (offset, sharpness).
     """
-    n = profile.shape[0]
+    n = profile.shape[-1]
     bins = torch.arange(n, dtype=torch.float32, device=profile.device)
-    pos = first + pitch * torch.arange(gsize, dtype=torch.float32,
-                                       device=profile.device)
+    pos = _col(first) + pitch * torch.arange(gsize, dtype=torch.float32,
+                                             device=profile.device)
     template = torch.clamp(
-        1.0 - torch.abs(bins[None, :] - pos[:, None]), min=0.0).sum(dim=0)
-    d, sh = _corr_shift(profile[None, :], template, S)
-    return d[0], sh[0]
+        1.0 - torch.abs(bins - pos[..., :, None]), min=0.0).sum(dim=-2)
+    d, sh = _corr_shift(profile[..., None, :], template, S)
+    return d[..., 0], sh[..., 0]
 
 
 def _abs_lock_update(cols0, rows0, first_x, first_y, px, py,
@@ -1078,7 +1166,7 @@ def _abs_lock_update(cols0, rows0, first_x, first_y, px, py,
     running ``e_lock`` (2,): correlation sharpness + frame ok; the
     comb-quality referee (accept only where the absolute comb score of the
     locked position beats the currently-held one); and the deadband
-    (TRACK_ABS_DEADBAND·pitch).
+    (TRACK_ABS_DEADBAND·pitch). Leading dims of the profiles are streams.
     """
     ex_m, sex = _lattice_offset(cols0, first_x, px, gsize, S)
     ey_m, sey = _lattice_offset(rows0, first_y, py, gsize, S)
@@ -1178,8 +1266,9 @@ def _track_measure(cf, rf, ct, cb, rl, rr, ref_col, ref_row, S: int,
     """Full + half-split profiles → per-frame 4-DoF similarity measurement.
 
     Inputs: (chunk, n) profiles from ``_split_profiles`` and the (n,)
-    full-axis references. Model: the board moved by a similarity about the
-    rect center, p' = c + (1+σ)·R(θ)·(p−c) + t.
+    full-axis references, or a leading stream dim on both. Model: the
+    board moved by a similarity about the rect center,
+    p' = c + (1+σ)·R(θ)·(p−c) + t.
 
     Coarse translation and the frame gate use the full-extent content
     correlations (an occluder collapses their peak sharpness, so corrupted
@@ -1192,7 +1281,8 @@ def _track_measure(cf, rf, ct, cb, rl, rr, ref_col, ref_row, S: int,
     the frame's gate passed, both its half-fits converged, and the x- and
     y-derived estimates agree where both exist.
 
-    Returns (tx, ty, theta, sigma, sharp, ok, rot_ok, scl_ok), all (chunk,).
+    Returns (tx, ty, theta, sigma, sharp, ok, rot_ok, scl_ok), all
+    (..., chunk).
     """
     n = ct.shape[-1]
     fx_t, fx_b, sx_t, sx_b, fy_l, fy_r, sy_l, sy_r = geom
@@ -1202,7 +1292,8 @@ def _track_measure(cf, rf, ct, cb, rl, rr, ref_col, ref_row, S: int,
     ok = sharp >= TRACK_MIN_SHARPNESS
 
     firsts = torch.stack([fx_t + tx, fx_b + tx, fy_l + ty, fy_r + ty])
-    pitches = torch.stack([sx_t, sx_b, sy_l, sy_r])[:, None]
+    pitches = torch.stack([sx_t, sx_b, sy_l, sy_r]) \
+        .reshape((4,) + (1,) * tx.ndim)
     (a_t, a_b, a_l, a_r), (b_t, b_b, b_l, b_r), (k_t, k_b, k_l, k_r) = \
         _teeth_fit(torch.stack([ct, cb, rl, rr]), firsts, pitches, gsize)
 
@@ -1240,18 +1331,20 @@ def _track_measure(cf, rf, ct, cb, rl, rr, ref_col, ref_row, S: int,
 def _apply_similarity(rc_pts: torch.Tensor, dx, dy, theta, sigma):
     """Apply per-frame similarity updates to rect-space points.
 
-    rc_pts: (k, 2); dx/dy/theta/sigma: (chunk,). → (chunk, k, 2)."""
+    rc_pts: (k, 2); dx/dy/theta/sigma: (..., chunk). → (..., chunk, k, 2)."""
     c = rc_pts.mean(dim=0)
     v = rc_pts - c                                       # (k, 2)
-    cosT, sinT = torch.cos(theta), torch.sin(theta)      # (chunk,)
-    rot = torch.stack([torch.stack([cosT, -sinT], -1),
-                       torch.stack([sinT, cosT], -1)], -2)   # (chunk, 2, 2)
-    vv = torch.einsum("cij,kj->cki", rot, v) * (1.0 + sigma)[:, None, None]
-    return c + vv + torch.stack([dx, dy], -1)[:, None, :]
+    cosT, sinT = torch.cos(theta), torch.sin(theta)      # (..., chunk)
+    # Written out rather than as a product: a frame's points then do not
+    # depend on how many frames or streams share the call.
+    vv = torch.stack([_col(cosT) * v[:, 0] - _col(sinT) * v[:, 1],
+                      _col(sinT) * v[:, 0] + _col(cosT) * v[:, 1]], -1) \
+        * (1.0 + sigma)[..., None, None]                     # (..., k, 2)
+    return c + vv + torch.stack([dx, dy], -1)[..., None, :]
 
 
 def _align_quality(cols, rows, rc_seed, dx, dy, sigma, gsize: int):
-    """Lattice-alignment trip-wire signal (chunk,): the gap-penalized comb
+    """Lattice-alignment trip-wire signal (..., chunk): the gap-penalized comb
     score of each frame's OWN profiles at the comb position the tracked
     transform predicts. It is absolute: teeth off the true lattice score
     low however self-consistent the correlation is."""
@@ -1264,13 +1357,15 @@ def _align_quality(cols, rows, rc_seed, dx, dy, sigma, gsize: int):
         + _comb_quality(rows, oy, sy, gsize)
 
 
-def _chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
-    """(B, ...) → (k, chunk, ...), the last frame repeated up to a multiple
-    of ``chunk``."""
-    pad = (-x.shape[0]) % chunk
+def _chunks(x: torch.Tensor, chunk: int, dim: int = 0) -> torch.Tensor:
+    """Frames along ``dim``, (..., B, ...) → (..., k, chunk, ...), the last
+    frame repeated up to a multiple of ``chunk``."""
+    pad = (-x.shape[dim]) % chunk
     if pad:
-        x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-    return x.reshape(x.shape[0] // chunk, chunk, *x.shape[1:])
+        last = x.narrow(dim, x.shape[dim] - 1, 1)
+        x = torch.cat([x, last.expand(*x.shape[:dim], pad,
+                                      *x.shape[dim + 1:])], dim=dim)
+    return x.reshape(*x.shape[:dim], -1, chunk, *x.shape[dim + 1:])
 
 
 def _held_measure(profiles, ref_col, ref_row, S: int, geom, gsize: int):
@@ -1395,12 +1490,30 @@ def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
     Returns (canon (B, S, S, 3) float [0, 1] with S = gsize·zone,
              corners (B, 4, 2) frame-space, sharpness (B,), align (B,),
              new_seed (4, 2)).
+
+    One stream of ``rectify_track_streams``.
     """
     refuse_lens(lens)
-    b = frames.shape[0]
+    out = rectify_track_streams(frames[None], seed_corners[None], gsize,
+                                zone, chunk, pad_cells)
+    return tuple(x[0] for x in out)
+
+
+def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
+                          gsize: int = 19, zone: int = 16, chunk: int = 16,
+                          pad_cells: int = 1):
+    """``rectify_track_batch`` of n independent streams at once, the
+    streams a leading tensor dimension: frames (n, B, H, W, 3), seeds
+    (n, 4, 2), and every output gains the leading n. Each chunk is one warp
+    launch for all n·chunk frames, each through its own stream's
+    homography; the measurement, lattice lock and crop run on (n, chunk)
+    stacks. The only Python loop is over chunks, and nothing in it waits
+    for the device.
+    """
+    n_streams, b = frames.shape[0], frames.shape[1]
     dev = frames.device
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
-    fc = _chunks(frames, chunk)
+    fc = _chunks(frames, chunk, dim=1)               # (n, k, chunk, ...)
 
     size = gsize * zone                      # canonical side (304)
     pad = pad_cells * zone                   # drift margin (16)
@@ -1413,26 +1526,31 @@ def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
     S = min(pad - 2, int(round(TRACK_WIN_OFFSET * zone)))
     geom = _half_geometry(anchors, E, gsize)
 
-    seed = seed_corners.to(torch.float32)
+    seed = seeds.to(torch.float32)                             # (n, 4, 2)
     ref_col = ref_row = None
     out_canon, out_cs, out_sharp, out_align = [], [], [], []
-    for frames_chunk in fc:
-        H = homography_dlt(anchors, seed)
-        rect = warp_frames(frames_chunk, H, (E, E), scale)  # (chunk, E, E, 3)
-        profiles = _split_profiles(rgb_to_gray(rect), gsize)
-        cols, rows = profiles[0], profiles[1]
+    for j in range(fc.shape[1]):
+        H = homography_dlt(anchors, seed)                      # (n, 3, 3)
+        hmats = H[:, None].expand(n_streams, chunk, 3, 3) \
+            .reshape(-1, 3, 3)
+        rect = warp_frames(fc[:, j].reshape(-1, *fc.shape[3:]), hmats,
+                           (E, E), scale)           # (n·chunk, E, E, 3)
+        profiles = _split_profiles(
+            rgb_to_gray(rect).reshape(n_streams, chunk, E, E), gsize)
+        cols, rows = profiles[0], profiles[1]                  # (n, chunk, E)
         if ref_col is None:
-            ref_col, ref_row = cols[0], rows[0]
+            ref_col, ref_row = cols[:, 0], rows[:, 0]
         dx, dy, theta, sigma, sharp, ok = _held_measure(
             profiles, ref_col, ref_row, S, geom, gsize)
 
         # Absolute lattice lock: here the seed-implied comb is exactly the
         # static anchors (teeth at lo + k·zone), one pitch for both axes.
-        e_lock = _abs_lock_update(cols[0], rows[0], lo, lo, float(zone),
-                                  float(zone), dx[0], dy[0], ok[0],
-                                  dx.new_zeros(2), S, gsize)
-        dx = dx + e_lock[0]
-        dy = dy + e_lock[1]
+        e_lock = _abs_lock_update(cols[:, 0], rows[:, 0], lo, lo,
+                                  float(zone), float(zone), dx[:, 0],
+                                  dy[:, 0], ok[:, 0],
+                                  dx.new_zeros(2, n_streams), S, gsize)
+        dx = dx + e_lock[0][:, None]
+        dy = dy + e_lock[1][:, None]
 
         # Canonical crop at the integer offset, then sub-pixel shift by the
         # fractional remainder. The offset is clamped to the pad−1 integer
@@ -1444,10 +1562,12 @@ def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
         # recovers.
         dc = torch.clamp(torch.stack([dx, dy], -1), -(pad + 1.0), pad + 1.0)
         ic = torch.clamp(torch.round(dc), -(pad - 1), pad - 1)
-        out_canon.append(_shifted_crop(rect, pad + ic.long(), size, dc - ic))
+        canon = _shifted_crop(rect, pad + ic.reshape(-1, 2).long(), size,
+                              (dc - ic).reshape(-1, 2))
+        out_canon.append(canon.reshape(n_streams, chunk, *canon.shape[1:]))
 
         cs = apply_homography(
-            H, _apply_similarity(anchors, dx, dy, theta, sigma))
+            H[:, None], _apply_similarity(anchors, dx, dy, theta, sigma))
         out_cs.append(cs)
         out_sharp.append(sharp)
         out_align.append(
@@ -1455,10 +1575,11 @@ def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
         # The next chunk re-anchors at the last frame's corners: its
         # lattice lands back at ``anchors``, so the old reference needs no
         # shift and the last profile realigns by its own translation.
-        seed = cs[-1]
+        seed = cs[:, -1]
         ref_col = (1 - TRACK_REF_EMA) * ref_col \
-            + TRACK_REF_EMA * _profile_shift(cols[-1], dx[-1])
+            + TRACK_REF_EMA * _profile_shift(cols[:, -1], dx[:, -1])
         ref_row = (1 - TRACK_REF_EMA) * ref_row \
-            + TRACK_REF_EMA * _profile_shift(rows[-1], dy[-1])
-    return (torch.cat(out_canon)[:b], torch.cat(out_cs)[:b],
-            torch.cat(out_sharp)[:b], torch.cat(out_align)[:b], seed)
+            + TRACK_REF_EMA * _profile_shift(rows[:, -1], dy[:, -1])
+    return (torch.cat(out_canon, 1)[:, :b], torch.cat(out_cs, 1)[:, :b],
+            torch.cat(out_sharp, 1)[:, :b], torch.cat(out_align, 1)[:, :b],
+            seed)

@@ -186,8 +186,12 @@ def warp_batch_fixed(frames: torch.Tensor, corners: torch.Tensor,
                          f"{tuple(corners.shape)}; per-frame corners go "
                          f"through warp_batch_chunked")
     size = gsize * zone
+    # Solved as a batch of one: a batch of streams' corners solves the
+    # same way (``parallel.mesh``), and a stream then warps to the same
+    # bits as it does alone (a batched 3×3 product rounds unlike a lone
+    # one on the CPU).
     H = homography_dlt(canonical_corners(gsize, zone, corners.device),
-                       corners)
+                       corners[None])[0]
     return warp_frames(frames, H, (size, size), scale)
 
 

@@ -123,33 +123,55 @@ def _scan_canonical(state: MetaState, canon: torch.Tensor, gsize: int,
                     zone: int, neural_params=None, valid_count=None):
     """Classifiers + temporal vote scan over canonical frames (B, S, S, 3)
     float [0, 1]. Frames at index ≥ valid_count (if given) pass through
-    without touching the carry."""
+    without touching the carry. One stream of ``scan_streams``."""
+    states = MetaState(*(x[None] for x in state))
+    new_states, labels, conf, agitation = scan_streams(
+        states, canon[None], gsize, zone, neural_params, valid_count)
+    return MetaState(*(x[0] for x in new_states)), labels[0], conf[0], \
+        agitation[0]
+
+
+def scan_streams(states: MetaState, canon: torch.Tensor, gsize: int,
+                 zone: int, neural_params=None, valid_count=None):
+    """``_scan_canonical`` of n independent streams at once: states whose
+    every field has a leading stream dim (``frame_count`` (n,)), canonical
+    frames (n, B, S, S, 3). The classifiers and motion gate run on all n·B
+    frames at once; the loop is over frames, each step updating every
+    stream's carry. Returns (states, labels (n, B, g, g) int8, conf
+    (n, B, g, g), agitation (n, B))."""
     if neural_params is not None:
         raise NotImplementedError(
             "the neural voter is ROADMAP Queue A item 8 (models/neural.py), "
             "not ported yet; no checkpoint ships")
-    b = canon.shape[0]
+    n, b = canon.shape[0], canon.shape[1]
     dev = canon.device
-    luma_small = background.downsample_luma(rgb_to_gray(canon), BG_FACTOR)
+    flat = canon.reshape(n * b, *canon.shape[2:])
+    luma_small = background.downsample_luma(rgb_to_gray(flat), BG_FACTOR)
 
     # One shared zone-statistics pass feeds both classifiers.
-    stats = zone_stats(canon, gsize, zone)
+    stats = zone_stats(flat, gsize, zone)
     lab_cont, conf_cont = sf_contours.classify_stats(stats, zone)
     lab_clus, conf_clus = sf_clustering.classify_stats(stats)
     del stats
+    lab_cont, conf_cont, lab_clus, conf_clus = (
+        x.reshape(n, b, gsize, gsize)
+        for x in (lab_cont, conf_cont, lab_clus, conf_clus))
     lab_nn = torch.zeros_like(lab_cont)
     conf_nn = torch.full_like(conf_cont, -1.0)
+    luma_small = luma_small.reshape(n, b, *luma_small.shape[1:])
 
-    # Motion gates: prev of frame i is frame i−1 (the state carries the
-    # batch boundary).
-    prev0 = torch.where(state.prev[0, 0] < 0, luma_small[0], state.prev)
-    prevs = torch.cat([prev0[None], luma_small[:-1]])
+    # Motion gates: prev of frame i is frame i−1 (each stream's state
+    # carries its batch boundary).
+    prev0 = torch.where(states.prev[:, :1, :1] < 0, luma_small[:, 0],
+                        states.prev)
+    prevs = torch.cat([prev0[:, None], luma_small[:, :-1]], dim=1)
     zone_calm, agitation = zone_motion_gate(luma_small, prevs, gsize)
 
     region, counts = _regions(gsize, dev)
-    agree = (lab_cont == lab_clus).to(torch.float32).reshape(b, -1)
-    region_agree = (torch.zeros((b, 9), dtype=torch.float32, device=dev)
-                    .index_add_(1, region, agree) / counts).reshape(b, 3, 3)
+    agree = (lab_cont == lab_clus).to(torch.float32).reshape(n, b, -1)
+    region_agree = (torch.zeros((n, b, 9), dtype=torch.float32, device=dev)
+                    .index_add_(2, region, agree) / counts) \
+        .reshape(n, b, 3, 3)
 
     cfg = cvconf.DEFAULT
     if valid_count is None:
@@ -157,28 +179,30 @@ def _scan_canonical(state: MetaState, canon: torch.Tensor, gsize: int,
     else:
         valid = torch.arange(b, device=dev) < valid_count
 
-    votes, stable, bg, trust = state.votes, state.stable, state.bg, \
-        state.trust
+    votes, stable, bg, trust = states.votes, states.stable, states.bg, \
+        states.trust
     out_labels, out_conf = [], []
     for i in range(b):
-        calm_scalar = agitation[i] <= cfg.agitation_threshold
+        calm = (agitation[:, i] <= cfg.agitation_threshold)[:, None, None]
         new_trust = torch.where(
-            calm_scalar, trust * (1 - TRUST_EMA) + region_agree[i] * TRUST_EMA,
+            calm, trust * (1 - TRUST_EMA) + region_agree[:, i] * TRUST_EMA,
             trust)
-        trust_per = new_trust.reshape(-1)[region].reshape(gsize, gsize)
+        trust_per = new_trust.reshape(n, 9)[:, region] \
+            .reshape(n, gsize, gsize)
         # Eligible readings compete by confidence: contours always,
         # clustering once its region's trust promotes.
-        ck_eff = torch.where(trust_per >= TRUST_PROMOTE, conf_clus[i], -1.0)
-        confs = torch.stack([conf_cont[i], ck_eff, conf_nn[i]])  # (3, g, g)
-        labs = torch.stack([lab_cont[i], lab_clus[i], lab_nn[i]])
-        pick = torch.argmax(confs, dim=0, keepdim=True)
+        ck_eff = torch.where(trust_per >= TRUST_PROMOTE, conf_clus[:, i],
+                             -1.0)
+        confs = torch.stack([conf_cont[:, i], ck_eff, conf_nn[:, i]])
+        labs = torch.stack([lab_cont[:, i], lab_clus[:, i], lab_nn[:, i]])
+        pick = torch.argmax(confs, dim=0, keepdim=True)      # (1, n, g, g)
         labels = torch.gather(labs, 0, pick)[0]
         conf = torch.gather(confs, 0, pick)[0]
         new_votes, new_stable, new_conf = vote_update(
-            votes, stable, labels, conf, zone_calm[i], cfg)
+            votes, stable, labels, conf, zone_calm[:, i], cfg)
         new_bg = background.update_background(
-            torch.where(bg[0, 0] < 0, luma_small[i], bg), luma_small[i],
-            agitation[i], cfg.background_ema)
+            torch.where(bg[:, :1, :1] < 0, luma_small[:, i], bg),
+            luma_small[:, i], agitation[:, i], cfg.background_ema)
         # Padded frames emit the current stable reading but leave the carry
         # untouched.
         old_conf = torch.clamp(votes.amax(dim=-1) / cfg.vote_window, 0.0, 1.0)
@@ -190,11 +214,12 @@ def _scan_canonical(state: MetaState, canon: torch.Tensor, gsize: int,
         out_labels.append(stable)
         out_conf.append(torch.where(v, new_conf, old_conf))
 
-    new_state = MetaState(
-        votes=votes, stable=stable, bg=bg, prev=luma_small[-1], trust=trust,
-        frame_count=state.frame_count + valid.sum().to(torch.int32))
-    return new_state, torch.stack(out_labels), torch.stack(out_conf), \
-        agitation
+    new_states = MetaState(
+        votes=votes, stable=stable, bg=bg, prev=luma_small[:, -1],
+        trust=trust,
+        frame_count=states.frame_count + valid.sum().to(torch.int32))
+    return new_states, torch.stack(out_labels, 1), \
+        torch.stack(out_conf, 1), agitation
 
 
 def track_read_batch(state: MetaState, frames: torch.Tensor,

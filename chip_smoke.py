@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``camkifu_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes the paths give it, then drives four paths
+PyTorch version at the shapes the paths give it, then drives seven paths
 once each, counting kernel launches per path:
 
 - the still path: one board detection on a 1080p still
@@ -19,7 +19,15 @@ once each, counting kernel launches per path:
   one ``detect_corners`` and then ``sf_meta.track_read_batch`` in batches
   of 16 (per-frame tracking, rectification, classification, vote scan) to
   its moves, with every synchronizing call an error from the second batch
-  on; then the same engine once at full width, 128 × 1080p.
+  on; then the same engine once at full width, 128 × 1080p;
+- board sizes 9 and 13: detection, 128 copies read and one tracked chunk
+  of a 1080p still at each, and ``infer_gsize`` on 9, 13 and 19 boards;
+- several streams (``parallel.mesh``): the film and handheld games seen by
+  four cameras through ``multistream_read_meta`` and
+  ``multistream_track_read``, each stream held to its single-stream call;
+- c5: 8 streams × 16 1080p frames, each its own board, through
+  ``parallel.mesh._read_all_streams``, then the same frames through
+  ``multistream_track_read``.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -122,6 +130,30 @@ HANDHELD_RENDER_THREADS = 8
 C4_BATCH = 128
 C4_CHUNK = 16
 UNFUSED_CHUNK = 8
+#: Board sizes off 19 (tests/test_board_sizes.py's gates): one 1080p still
+#: each (g stones, seed g), detected, read 128 at a time as c2 reads 19,
+#: tracked for one chunk, and its size inferred beside a 19 board's.
+SIZES = (9, 13)
+SIZE_TOL_CELLS = 0.2
+INFER_MARGIN = 1.1
+#: bench.py's c5: 8 streams of 16 1080p frames through
+#: parallel.mesh._read_all_streams. Every stream is its own board: 4
+#: renders, each seen by 2 cameras an integer translation apart (80 px, 1.6
+#: cells: a stream read through another's corners misreads).
+C5_STREAMS = 8
+C5_PER_STREAM = 16
+C5_RENDERS = 4
+C5_SHIFTS = ((-40, -30), (40, 30))
+#: The multi-stream games: the film's and the handheld game's 720p frames
+#: seen by 4 cameras at integer translations (px), in batches of 16.
+MS_SHIFTS = ((0, 0), (12, -8), (-10, 6), (6, 10))
+MS_BATCH = 16
+#: A stream's tracked corners against its single-stream call, px. On the
+#: CPU the two are bitwise equal; on the card reductions and batched solves
+#: round by the batch's size, which the tracker's seed hand-off carries
+#: from batch to batch (about 1e-3 px after 7 batches at 720p). A stream
+#: read through another's camera is off by the shifts above, ≥ 10 px.
+MS_STREAM_TOL_PX = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -294,8 +326,9 @@ def edge_at(x, cols: int, rows: int):
 def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float):
     """The library yardstick of the warp: ``F.grid_sample`` (bilinear,
     border padding, align_corners) on the frames as float32 NCHW, through
-    a normalised grid built from ``H`` beforehand; returns the call. The
-    float copy and the grid are made here, outside any timed window."""
+    a normalised grid built from ``H`` ((3, 3), or (B, 3, 3) a frame each)
+    beforehand; returns the call. The float copy and the grid are made
+    here, outside any timed window."""
     import torch
     import torch.nn.functional as F
 
@@ -304,11 +337,12 @@ def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float):
     dev = frames.device
     v = torch.arange(oh, dtype=torch.float32, device=dev)[:, None]
     u = torch.arange(ow, dtype=torch.float32, device=dev)[None, :]
-    den = H[2, 0] * u + H[2, 1] * v + H[2, 2]
-    x = (H[0, 0] * u + H[0, 1] * v + H[0, 2]) / den
-    y = (H[1, 0] * u + H[1, 1] * v + H[1, 2]) / den
+    Hb = (H if H.ndim == 3 else H[None])[:, :, :, None, None]
+    den = Hb[:, 2, 0] * u + Hb[:, 2, 1] * v + Hb[:, 2, 2]
+    x = (Hb[:, 0, 0] * u + Hb[:, 0, 1] * v + Hb[:, 0, 2]) / den
+    y = (Hb[:, 1, 0] * u + Hb[:, 1, 1] * v + Hb[:, 1, 2]) / den
     grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], dim=-1)
-    grid = grid[None].expand(b, oh, ow, 2).contiguous()
+    grid = grid.expand(b, oh, ow, 2).contiguous()
     xf = frames.permute(0, 3, 1, 2).float().contiguous()
     return lambda: F.grid_sample(xf, grid, mode="bilinear",
                                  padding_mode="border",
@@ -1078,7 +1112,8 @@ def phase_handheld(dev) -> dict:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     _require(d_px < TOL_CPU_PX, "handheld: card and CPU corners disagree")
     _require(same, "handheld: card and CPU labels disagree")
-    return {"launches": counts}
+    return {"launches": counts, "frames": frames, "truth": truth,
+            "seed": seed0.cpu().numpy(), "moves": moves}
 
 
 def _c4_inputs(redetect: dict):
@@ -1103,8 +1138,7 @@ def phase_handheld_kernels(redetect: dict) -> list[dict]:
                                                   _rect_H)
     from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
     from camkifu_tpu_torch.ops.cuda import warp_kernel
-    from camkifu_tpu_torch.ops.warp import (canonical_corners, homography_dlt,
-                                             square)
+    from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
 
     frames, truth = _c4_inputs(redetect)
     dev = frames.device
@@ -1118,8 +1152,7 @@ def phase_handheld_kernels(redetect: dict) -> list[dict]:
     # The fused canvas: 304² and a cell's margin around it (336²), the
     # seed's corner intersections on the centers of the corner cells.
     shapes = (
-        ("handheld canvas", fused, (336, 336), scale,
-         homography_dlt(square(16.0 + 7.5, 16.0 + 304.0 - 8.5, dev), seed)),
+        ("handheld canvas", fused, (336, 336), scale, _canvas_H(seed, 19)),
         ("handheld gray canvas", grays, (REFINE_RES,) * 2, scale,
          _rect_H(seed, TRACK_MARGIN, REFINE_RES)),
         ("handheld chunked", chunk, (304, 304), scale,
@@ -1212,6 +1245,483 @@ def phase_handheld_times(redetect: dict, card: str) -> dict:
     return {"fps": fps, "ms": med}
 
 
+def _size_labels(g: int) -> "np.ndarray":
+    """A size-``g`` board with ``g`` stones, seed ``g``."""
+    import numpy as np
+
+    labels = np.zeros((g, g), np.int8)
+    idx = np.random.default_rng(g).choice(g * g, g, replace=False)
+    labels.flat[idx[::2]] = 1
+    labels.flat[idx[1::2]] = 2
+    return labels
+
+
+def _canvas_H(corners, g: int, zone: int = 16, pad: int = 16):
+    """The fused tracker's canvas homography for size ``g``: the corner
+    intersections on the centers of the corner cells of a (g·zone + 2·pad)²
+    canvas."""
+    from camkifu_tpu_torch.ops.warp import homography_dlt, square
+
+    lo = pad + zone / 2.0 - 0.5
+    return homography_dlt(square(lo, pad + g * zone - zone / 2.0 - 0.5,
+                                 corners.device), corners)
+
+
+def phase_sizes(dev, card: str) -> dict:
+    """Board sizes 9 and 13 at 1080p: ``detect_corners``, 128 copies
+    through ``read_board_batch``, one chunk of 16 through
+    ``track_read_batch``, and ``infer_gsize`` on each size and on a 19
+    board, counting launches; then the warp kernel at the new canonical
+    and canvas sides, and CUDA-event times of c1, c2 and ``infer_gsize``."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch import pipeline
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import render_still
+
+    t0 = time.perf_counter()
+    stills = {}
+    for g in SIZES + (19,):
+        frame, truth = render_still(_size_labels(g), frame_hw=FRAME_HW,
+                                    seed=g)
+        stills[g] = (torch.from_numpy(frame).to(dev), truth)
+    t_render = time.perf_counter() - t0
+
+    _reset_counts()
+    out = {}
+    for g in SIZES:
+        frame, truth = stills[g]
+        frames = frame[None].expand(BATCH, *frame.shape).contiguous()
+        corners, score = bf_auto.detect_corners(frame, gsize=g)
+        labels, conf = pipeline.read_board_batch(frames, corners, gsize=g)
+        track = sf_meta.track_read_batch(
+            sf_meta.init_state(g, device=dev), frames[:C4_CHUNK],
+            torch.from_numpy(truth).to(dev), gsize=g, chunk=C4_CHUNK)
+        out[g] = (frames, corners, score, labels, conf, track)
+    inferred = {g: bf_auto.infer_gsize(stills[g][0]) for g in stills}
+    torch.cuda.synchronize()
+    counts = _read_counts()
+
+    for g in SIZES:
+        frames, corners, score, labels, conf, track = out[g]
+        truth = stills[g][1]
+        cell = float(np.linalg.norm(truth[1] - truth[0])) / (g - 1)
+        err = float(np.abs(corners.cpu().numpy() - truth).max()) / cell
+        right = int((labels.cpu().numpy() == _size_labels(g)[None])
+                    .all(axis=(1, 2)).sum())
+        t_err = float(np.abs(track[4].cpu().numpy() - truth).max()) / cell
+        print(f"size {g}: score {float(score):.4f}, corners within "
+              f"{err:.4f} cell of the truth (tol {SIZE_TOL_CELLS}), boards "
+              f"read exactly {right}/{BATCH}, tracked corners within "
+              f"{t_err:.4f} cell (tol {HANDHELD_TOL_CELLS}), sharpness min "
+              f"{float(track[5].min()):.3f}", flush=True)
+        _require(float(score) > 0.5, f"size {g}: detection score too low")
+        _require(err < SIZE_TOL_CELLS, f"size {g}: corners off the truth")
+        _require(labels.shape == (BATCH, g, g)
+                 and bool(torch.isfinite(conf).all()),
+                 f"size {g}: wrong or non-finite output")
+        _require(right == BATCH, f"size {g}: a board was misread")
+        _require(t_err < HANDHELD_TOL_CELLS,
+                 f"size {g}: tracked corners off the truth")
+    for g, (got, quals) in inferred.items():
+        others = max(q for k, q in quals.items() if k != g)
+        print(f"infer_gsize on a {g} board: {got}, qualities "
+              + ", ".join(f"{k} {q:.4f}" for k, q in quals.items())
+              + f", margin {quals[g] / others:.3f} (gate {INFER_MARGIN})",
+              flush=True)
+        _require(got == g, f"infer_gsize read a {g} board as {got}")
+        _require(quals[g] > INFER_MARGIN * others,
+                 f"infer_gsize: no {INFER_MARGIN}x margin on the {g} board")
+    print(f"sizes path: launches {counts} (render {t_render:.1f} s)",
+          flush=True)
+    _require_launched(counts, "sizes")
+
+    # The warp kernel at the new sides: canonical 144² / 208² (c2) and
+    # the tracker's canvas 176² / 240².
+    scale = 1.0 / 255.0
+    cases = []
+    for g in SIZES:
+        frames, corners = out[g][0], out[g][1]
+        side, canvas = 16 * g, 16 * g + 32
+        for path, x, hw, H in (
+                (f"size {g} c2", frames, (side, side),
+                 homography_dlt(canonical_corners(g, 16, dev), corners)),
+                (f"size {g} canvas", frames[:C4_CHUNK], (canvas, canvas),
+                 _canvas_H(corners, g))):
+            H = H.contiguous()
+            err = _check_warp(x, H, hw, f" ({path})")
+            cases.append(_case(
+                "warp", f"{tuple(x.shape)} u8 → {hw[0]}²×3", path,
+                lambda x=x, H=H, hw=hw: warp_kernel.warp_homography(
+                    x, H, hw, scale),
+                lambda x=x, H=H, hw=hw: warp_kernel.warp_homography_ref(
+                    x, H, hw, scale),
+                err, bound_warp(x, hw),
+                library=lambda x=x, H=H, hw=hw: grid_sample_case(
+                    x, H, hw, scale)))
+
+    runs = {}
+    for g in SIZES:
+        frames = out[g][0]
+
+        def c1(g=g, frames=frames):
+            cs, _ = bf_auto.detect_corners(frames[0], gsize=g)
+            return pipeline.read_board_batch(frames[:1], cs, gsize=g)
+
+        def c2(g=g, frames=frames):
+            cs, _ = bf_auto.detect_corners(frames[0], gsize=g)
+            return pipeline.read_board_batch(frames, cs, gsize=g)
+
+        runs[f"c1 at {g}"] = _cuda_ms_runs(c1, reps=20)
+        runs[f"c2 at {g}"] = _cuda_ms_runs(c2, reps=20)
+    runs["infer_gsize"] = _cuda_ms_runs(
+        lambda: bf_auto.infer_gsize(stills[13][0]), reps=5, warmup=1)
+    med = {k: _median(v) for k, v in runs.items()}
+    print(f"times on {card}, median [min, max] of 20 calls (5 for "
+          f"infer_gsize on the 13 board): " + ", ".join(
+              f"{k} {med[k]:.3f} ms [{v[0]:.3f}, {v[-1]:.3f}]"
+              for k, v in runs.items())
+          + "; " + ", ".join(f"c2 at {g} {BATCH / med[f'c2 at {g}'] * 1e3:.1f}"
+                             f" frames/s" for g in SIZES), flush=True)
+    return {"launches": counts, "cases": cases, "ms": med}
+
+
+def _translate(frames, dx: int, dy: int, out=None):
+    """(..., H, W, 3) uint8 frames moved by (dx, dy) whole pixels into
+    ``out`` (a new array if None), the uncovered border filled with the
+    renderer's table colour."""
+    import numpy as np
+
+    from camkifu_tpu_torch.utils.still import TABLE
+
+    h, w = frames.shape[-3], frames.shape[-2]
+    if out is None:
+        out = np.empty_like(frames)
+    out[...] = np.asarray(TABLE, np.uint8)
+
+    def span(d, n):
+        return (slice(0, n - d), slice(d, n)) if d >= 0 else \
+            (slice(-d, n), slice(0, n + d))
+
+    (ys, yd), (xs, xd) = span(dy, h), span(dx, w)
+    out[..., yd, xd, :] = frames[..., ys, xs, :]
+    return out
+
+
+def _c5_inputs(dev):
+    """bench.py's c5 at full width, each stream its own board and camera:
+    (frames (8, 16, 1080, 1920, 3) on ``dev``, corners (8, 4, 2) on
+    ``dev``, truth labels (8, 19, 19))."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.utils.still import render_still
+
+    frames, corners, labels = [], [], []
+    for r in range(C5_RENDERS):
+        lab = np.zeros((19, 19), np.int8)
+        idx = np.random.default_rng(100 + r).choice(361, 40 + 20 * r,
+                                                    replace=False)
+        lab.flat[idx[::2]] = 1
+        lab.flat[idx[1::2]] = 2
+        frame, truth = render_still(lab, frame_hw=FRAME_HW, seed=100 + r)
+        for dx, dy in C5_SHIFTS:
+            f = torch.from_numpy(_translate(frame, dx, dy)).to(dev)
+            frames.append(f[None].expand(C5_PER_STREAM, *f.shape))
+            corners.append(truth + np.array([dx, dy], np.float32))
+            labels.append(lab)
+    return (torch.stack(frames).contiguous(),
+            torch.from_numpy(np.stack(corners)).to(dev), np.stack(labels))
+
+
+def phase_c5(dev, card: str) -> dict:
+    """c5 once, counted and checked (one warp launch for all 128 frames,
+    every stream's 16 grids equal to its own board), the warp kernel at
+    its shape with 128 distinct homographies, and c5's CUDA-event time."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
+    from camkifu_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    frames, corners, truth = _c5_inputs(dev)
+    t_render = time.perf_counter() - t0
+    _reset_counts()
+    labels, conf = mesh._read_all_streams(frames, corners)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    n = C5_STREAMS * C5_PER_STREAM
+    right = int((labels.cpu().numpy() == truth[:, None])
+                .all(axis=(2, 3)).sum())
+    print(f"c5 path: {tuple(frames.shape)}, boards read exactly {right}/{n}, "
+          f"launches {counts} (render {t_render:.1f} s)", flush=True)
+    _require(labels.shape == (C5_STREAMS, C5_PER_STREAM, 19, 19)
+             and bool(torch.isfinite(conf).all()),
+             "c5: wrong or non-finite output")
+    _require(right == n, "c5: a stream's board was misread")
+    _require(counts["warp"][0] == 1,
+             "c5: not one warp launch for every stream's frames")
+
+    # Every frame its own homography: its stream's corners moved by a
+    # hundredth of a pixel per frame.
+    flat = frames.reshape(n, *frames.shape[2:])
+    jitter = torch.arange(n, device=dev, dtype=torch.float32) * 0.01
+    per_frame = corners.repeat_interleave(C5_PER_STREAM, 0) \
+        + jitter[:, None, None]
+    H = homography_dlt(canonical_corners(device=dev), per_frame).contiguous()
+    scale = 1.0 / 255.0
+    err = _check_warp(flat, H, (304, 304), f" (c5, {n} homographies)")
+    cases = [_case(
+        "warp", f"{tuple(flat.shape)} u8, {n} homographies → 304²×3", "c5",
+        lambda: warp_kernel.warp_homography(flat, H, (304, 304), scale),
+        lambda: warp_kernel.warp_homography_ref(flat, H, (304, 304), scale),
+        err, bound_warp(flat, (304, 304)),
+        library=lambda: grid_sample_case(flat, H, (304, 304), scale))]
+
+    runs = _cuda_ms_runs(lambda: mesh._read_all_streams(frames, corners),
+                         reps=20)
+    med = _median(runs)
+    print(f"times on {card}: c5 {med:.3f} ms [{runs[0]:.3f}, {runs[-1]:.3f}]"
+          f" median [min, max] of 20 calls = {n / med * 1e3:.1f} frames/s "
+          f"({C5_STREAMS} streams x {C5_PER_STREAM} x {FRAME_HW[0]}p)",
+          flush=True)
+    return {"launches": counts, "cases": cases, "ms": med,
+            "fps": n / med * 1e3, "frames": frames, "corners": corners,
+            "truth": truth}
+
+
+def _streams_of(frames, corners):
+    """A game's frames (N, H, W, 3) and corners (…, 4, 2) as seen by the
+    ``MS_SHIFTS`` cameras: (frames (n, N, H, W, 3), corners (n, …, 4, 2)),
+    numpy."""
+    import numpy as np
+
+    out = np.empty((len(MS_SHIFTS),) + frames.shape, np.uint8)
+    for s, (dx, dy) in enumerate(MS_SHIFTS):
+        _translate(frames, dx, dy, out[s])
+    return out, np.stack([corners + np.array([dx, dy], np.float32)
+                          for dx, dy in MS_SHIFTS])
+
+
+def _ms_batches(frames):
+    """(lo, n real frames, (n_streams, MS_BATCH, H, W, 3) tensor) per
+    batch, the tail padded with repeats of its last frame."""
+    import numpy as np
+    import torch
+
+    total = frames.shape[1]
+    for lo in range(0, total, MS_BATCH):
+        fb = frames[:, lo:lo + MS_BATCH]
+        n = fb.shape[1]
+        if n < MS_BATCH:
+            fb = np.concatenate(
+                [fb, np.repeat(fb[:, -1:], MS_BATCH - n, 1)], axis=1)
+        yield lo, n, torch.from_numpy(np.ascontiguousarray(fb))
+
+
+def phase_multistream(film: dict, handheld: dict, dev) -> dict:
+    """The two stateful multi-stream entry points once each on 4 streams
+    of the 720p games, batch by batch, with every synchronizing call an
+    error from the second batch on: ``multistream_read_meta`` (the film
+    game, fixed cameras) and ``multistream_track_read`` (the handheld
+    game). Every stream reads its game; each stream equals the
+    single-stream call on it; the tracked first batch also runs through
+    ``device="cpu"``."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.core.gamesync import MoveExtractor, score_moves
+    from camkifu_tpu_torch.parallel import mesh
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import sample_moves
+
+    n_s = len(MS_SHIFTS)
+    t0 = time.perf_counter()
+    film_f, film_c = _streams_of(film["frames"], film["corners"])
+    hand_f, hand_c = _streams_of(handheld["frames"], handheld["truth"])
+    seeds0 = _streams_of(handheld["frames"][:1], handheld["seed"])[1]
+    t_prep = time.perf_counter() - t0
+
+    def drive(fn, frames, state, key):
+        """Every batch through ``fn(state, batch, key)`` → (state,
+        labels, extra); sync debug mode "error" from the second on."""
+        outs = []
+        try:
+            for lo, n, fb in _ms_batches(frames):
+                fb = fb.to(dev)
+                torch.cuda.synchronize()
+                if lo:
+                    torch.cuda.set_sync_debug_mode("error")
+                state, labels, extra, key = fn(state, fb, key)
+                torch.cuda.set_sync_debug_mode("default")
+                outs.append((lo, n, labels, extra))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return outs
+
+    def meta(state, fb, corners):
+        state, labels, _, _ = mesh.multistream_read_meta(state, fb, corners)
+        return state, labels, None, corners
+
+    def track(state, fb, seeds):
+        out = mesh.multistream_track_read(state, fb, seeds)
+        return out[0], out[1], out[4], out[7]
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    meta_out = drive(meta, film_f, mesh.multistream_init_states(n_s,
+                                                                device=dev),
+                     torch.from_numpy(film_c).to(dev))
+    track_out = drive(track, hand_f,
+                      mesh.multistream_init_states(n_s, device=dev),
+                      torch.from_numpy(seeds0).to(dev))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    t_run = time.perf_counter() - t0
+    n_meta, n_track = len(meta_out), len(track_out)
+
+    film_moves = sample_moves(FILM_MOVES, seed=5)
+    hand_moves = handheld["moves"]
+    cell = float(np.linalg.norm(hand_c[0, 0, 1] - hand_c[0, 0, 0]) / 18)
+    agree = {"meta": [], "track": []}
+    err_cells = 0.0
+    for name, outs, moves in (("meta", meta_out, film_moves),
+                              ("track", track_out, hand_moves)):
+        for s in range(n_s):
+            ex = MoveExtractor()
+            for lo, n, labels, cs in outs:
+                for lab in labels[s, :n].cpu().numpy():
+                    ex.advance(lab)
+                if cs is not None:
+                    err_cells = max(err_cells, float(np.abs(
+                        cs[s, :n].cpu().numpy() - hand_c[s, lo:lo + n]).max())
+                        / cell)
+            agree[name].append(score_moves(ex.moves, moves)["agreement"])
+
+    # Each stream alone through the single-stream entry points.
+    t0 = time.perf_counter()
+    d_px, same = 0.0, True
+    for s in range(n_s):
+        st = sf_meta.init_state(device=dev)
+        c = torch.from_numpy(film_c[s]).to(dev)
+        for (lo, n, fb), (_, _, labels, _) in zip(
+                _ms_batches(film_f[s:s + 1]), meta_out):
+            st, lab, _, _ = sf_meta.read_batch(st, fb[0].to(dev), c)
+            same = same and torch.equal(lab, labels[s])
+        st = sf_meta.init_state(device=dev)
+        seed = torch.from_numpy(seeds0[s]).to(dev)
+        for (lo, n, fb), (_, _, labels, cs) in zip(
+                _ms_batches(hand_f[s:s + 1]), track_out):
+            st, lab, _, _, cs_s, _, _, seed = sf_meta.track_read_batch(
+                st, fb[0].to(dev), seed)
+            same = same and torch.equal(lab, labels[s])
+            d_px = max(d_px, float((cs_s - cs[s]).abs().max()))
+    t_single = time.perf_counter() - t0
+
+    # The tracked first batch through device="cpu".
+    t0 = time.perf_counter()
+    _, _, fb = next(_ms_batches(hand_f))
+    out_c = mesh.multistream_track_read(
+        mesh.multistream_init_states(n_s, device="cpu"), fb,
+        torch.from_numpy(seeds0))
+    _, _, lab_d, cs_d = track_out[0]
+    d_cpu = float((out_c[4] - cs_d.cpu()).abs().max())
+    same_cpu = torch.equal(out_c[1], lab_d.cpu())
+    t_cpu = time.perf_counter() - t0
+
+    print(f"multi-stream path: {n_s} streams of the {FILM_HW[0]}p film "
+          f"game through multistream_read_meta and of the handheld game "
+          f"through multistream_track_read, batches of {MS_BATCH}, "
+          f"agreement {agree['meta']} / {agree['track']}, tracked corners "
+          f"within {err_cells:.4f} cell of the truth (tol "
+          f"{HANDHELD_TOL_CELLS}), no host wait from the second batch on, "
+          f"each stream alone: labels {'equal' if same else 'DIFFER'}, "
+          f"corners within {d_px:.2e} px (tol {MS_STREAM_TOL_PX}); "
+          f"device=\"cpu\" on the first "
+          f"batch: corners within {d_cpu:.4f} px (tol {TOL_CPU_PX}), labels "
+          f"{'equal' if same_cpu else 'DIFFER'}; launches {counts} in "
+          f"{n_meta} + {n_track} calls (prep {t_prep:.1f} s, run "
+          f"{t_run:.1f} s, single streams {t_single:.1f} s, cpu "
+          f"{t_cpu:.1f} s)", flush=True)
+    _require(all(a == 1.0 for a in agree["meta"] + agree["track"]),
+             "multi-stream: a stream's game was misread")
+    _require(err_cells < HANDHELD_TOL_CELLS,
+             "multi-stream: tracked corners off the truth")
+    _require(same, "multi-stream: a stream differs from its single call")
+    _require(d_px <= MS_STREAM_TOL_PX, "multi-stream: a stream's corners "
+             "differ from its single call")
+    _require(d_cpu < TOL_CPU_PX and same_cpu,
+             "multi-stream: card and CPU disagree")
+    _require(counts["warp"][0] == n_meta + n_track,
+             "multi-stream: not one warp launch a batch for every stream")
+    return {"launches": counts}
+
+
+def phase_multistream_times(c5: dict, c4_track_ms: float, card: str) -> dict:
+    """``multistream_track_read`` at full width (8 streams × 16 × 1080p,
+    the c5 frames, each stream seeded on its own corners): one call under
+    sync debug mode "error" and checked, the warp kernel at its canvas
+    (128 frames, 8 homographies), then its CUDA-event time beside c4's
+    ``track_read_batch`` at 128 × 1080p."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.parallel import mesh
+
+    frames, corners = c5["frames"], c5["corners"]
+    states = mesh.multistream_init_states(C5_STREAMS, device=corners.device)
+    mesh.multistream_track_read(states, frames, corners)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = mesh.multistream_track_read(states, frames, corners)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    truth = corners.cpu().numpy()
+    cell = float(np.linalg.norm(truth[0, 1] - truth[0, 0]) / 18)
+    err_cells = float(np.abs(out[4].cpu().numpy()
+                             - truth[:, None]).max()) / cell
+    sharp = float(out[5].min())
+    print(f"multistream_track_read at full width: {tuple(frames.shape)}, "
+          f"tracked corners within {err_cells:.4f} cell (tol "
+          f"{HANDHELD_TOL_CELLS}), sharpness min {sharp:.3f}, no host wait",
+          flush=True)
+    _require(err_cells < HANDHELD_TOL_CELLS and bool(
+        torch.isfinite(out[2]).all()), "multi-stream at full width: off")
+
+    n = C5_STREAMS * C5_PER_STREAM
+    flat = frames.reshape(n, *frames.shape[2:])
+    H = _canvas_H(corners, 19)[:, None].expand(C5_STREAMS, C5_PER_STREAM, 3, 3) \
+        .reshape(n, 3, 3).contiguous()
+    scale = 1.0 / 255.0
+    err = _check_warp(flat, H, (336, 336), " (multi-stream canvas)")
+    cases = [_case(
+        "warp", f"{tuple(flat.shape)} u8, {C5_STREAMS} homographies → "
+        f"336²×3", "multi-stream canvas",
+        lambda: warp_kernel.warp_homography(flat, H, (336, 336), scale),
+        lambda: warp_kernel.warp_homography_ref(flat, H, (336, 336), scale),
+        err, bound_warp(flat, (336, 336)),
+        library=lambda: grid_sample_case(flat, H, (336, 336), scale))]
+
+    runs = _cuda_ms_runs(lambda: mesh.multistream_track_read(
+        states, frames, corners), reps=10)
+    med = _median(runs)
+    print(f"times on {card}: multistream_track_read {med:.3f} ms "
+          f"[{runs[0]:.3f}, {runs[-1]:.3f}] median [min, max] of 10 calls = "
+          f"{n / med * 1e3:.1f} frames/s ({C5_STREAMS} streams x "
+          f"{C5_PER_STREAM} x {FRAME_HW[0]}p); c4's track_read_batch at "
+          f"{C4_BATCH} x {FRAME_HW[0]}p {c4_track_ms:.3f} ms = "
+          f"{C4_BATCH / c4_track_ms * 1e3:.1f} frames/s", flush=True)
+    return {"cases": cases, "ms": med, "fps": n / med * 1e3}
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -1300,6 +1810,28 @@ def run_phases(dev, card: str) -> dict:
     paths = {"still": run["launches"], "film": film["launches"],
              "redetect": redetect["launches"],
              "handheld": handheld["launches"]}
+    del redetect
+    t0 = time.perf_counter()
+    sizes = phase_sizes(dev, card)
+    print(f"sizes phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    paths["multi-stream"] = phase_multistream(film, handheld, dev)["launches"]
+    del film, handheld
+    print(f"multi-stream phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    c5 = phase_c5(dev, card)
+    tm = phase_multistream_times(c5, th["ms"]["track_read"], card)
+    print(f"c5 phase {time.perf_counter() - t0:.1f} s", flush=True)
+    paths["sizes"], paths["c5"] = sizes["launches"], c5["launches"]
+    new_cases = sizes["cases"] + c5["cases"] + tm["cases"]
+    c5_fps = c5["fps"]
+    del c5
+    t0 = time.perf_counter()
+    phase_kernel_times(new_cases, card)
+    print(f"new warp shapes' times {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cases += [_numbers_only(c) for c in new_cases]
+    del new_cases
     return {"kernels": [_kernel_entry(name, source, replaces, cases, paths)
                         for name, (source, replaces) in SOURCES.items()],
             "summary": {"c1_ms": t["c1_ms"],
@@ -1309,7 +1841,15 @@ def run_phases(dev, card: str) -> dict:
                         "film_fps": tf["fps"]["film"],
                         "c4_fps": th["fps"]["c4"],
                         "c4_track_read_fps": th["fps"]["track_read"],
-                        "c4_unfused_fps": th["fps"]["unfused"]}}
+                        "c4_unfused_fps": th["fps"]["unfused"],
+                        **{f"c1_ms_at_{g}": sizes["ms"][f"c1 at {g}"]
+                           for g in SIZES},
+                        **{f"c2_fps_at_{g}":
+                           BATCH / sizes["ms"][f"c2 at {g}"] * 1e3
+                           for g in SIZES},
+                        "infer_gsize_ms": sizes["ms"]["infer_gsize"],
+                        "c5_fps": c5_fps,
+                        "multistream_track_fps": tm["fps"]}}
 
 
 def main() -> int:

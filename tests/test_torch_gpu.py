@@ -513,3 +513,63 @@ def test_unfused_tracker_and_chunked_warp_on_the_card_match_the_cpu():
     canon_d = warp_batch_chunked(fb.to(dev), cs_c.to(dev), scale=1 / 255)
     assert canon_d.shape == (12, 304, 304, 3)
     assert float((canon_d.cpu() - canon_c).abs().max()) < 1e-4
+
+
+def test_warp_kernel_with_a_homography_per_frame_equals_plain():
+    """c5's launch: 8 streams × 4 frames, every frame through its own
+    homography (its stream's corners moved by a hundredth of a pixel a
+    frame): bitwise equal to the plain version, one launch."""
+    dev = _device()
+    hw = (1080, 1920)
+    frames = _frames(dev, 32, hw)
+    base = torch.from_numpy(default_corners(hw)).to(dev)
+    shift = torch.arange(32, device=dev, dtype=torch.float32)
+    corners = base + (shift // 4 * 5.0 + shift * 0.01)[:, None, None]
+    H = homography_dlt(canonical_corners(device=dev), corners).contiguous()
+    before = warp_kernel.launches
+    ours = warp_kernel.warp_homography(frames, H, (304, 304), 1 / 255)
+    assert warp_kernel.launches == before + 1
+    ref = warp_kernel.warp_homography_ref(frames, H, (304, 304), 1 / 255)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, ref)
+
+
+def test_multistream_track_read_on_the_card_never_waits():
+    """Three drifting 720p streams of 16 frames: one warp launch for all
+    of them, a warm call with every synchronizing call an error, and each
+    stream's labels equal to the single-stream engine's on the card,
+    corners within 1e-3 px."""
+    from camkifu_tpu_torch.parallel import mesh
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import handheld_corners
+
+    dev = _device()
+    hw = (720, 1280)
+    labels = np.zeros((19, 19), np.int8)
+    labels[3, 3] = 1
+    labels[15, 15] = 2
+    frames, seeds = [], []
+    for s in range(3):
+        truth = handheld_corners(16, hw) + np.float32(6 * s - 6)
+        frames.append(np.stack([render_still(labels, hw, seed=t, corners=c)[0]
+                                for t, c in enumerate(truth)]))
+        seeds.append(truth[0])
+    fb = torch.from_numpy(np.stack(frames)).to(dev)
+    sd = torch.from_numpy(np.stack(seeds)).to(dev)
+    states = mesh.multistream_init_states(3)
+    assert states.votes.is_cuda and states.frame_count.shape == (3,)
+    before = warp_kernel.launches
+    out = mesh.multistream_track_read(states, fb, sd)
+    assert warp_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = mesh.multistream_track_read(states, fb, sd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(again[1], out[1])
+    for s in range(3):
+        one = sf_meta.track_read_batch(sf_meta.init_state(), fb[s], sd[s])
+        assert torch.equal(one[1], out[1][s])
+        assert float((one[4] - out[4][s]).abs().max()) <= 1e-3

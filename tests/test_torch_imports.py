@@ -32,6 +32,8 @@ MODULES = [
     "camkifu_tpu_torch.stone.sf_contours",
     "camkifu_tpu_torch.stone.sf_meta",
     "camkifu_tpu_torch.stone.votes",
+    "camkifu_tpu_torch.parallel",
+    "camkifu_tpu_torch.parallel.mesh",
     "camkifu_tpu_torch.ops.cuda._build",
     "camkifu_tpu_torch.ops.cuda.warp_kernel",
     "camkifu_tpu_torch.ops.cuda.edge_kernel",

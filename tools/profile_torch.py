@@ -11,7 +11,10 @@ redetect's ``detect_batch`` on 64 drifting 1080p frames, with its stage 1
 handheld path (c4): ``sf_meta.track_read_batch`` of those frames twice
 (128 × 1080p, 16 a chunk), with its tracker (``rectify_track_batch``),
 its vote scan's share and the unfused pair (``track_corners_batch`` +
-``read_batch``) apart. For each stage it prints the host wall time per
+``read_batch``) apart; c5 (``parallel.mesh._read_all_streams``, 8
+streams × 16 1080p frames) and ``multistream_track_read`` on the same
+streams, beside one stream's 16 frames through ``track_read_batch``. For
+each stage it prints the host wall time per
 call, the device kernel time, the device's busy share of the wall window,
 the number of kernels launched, the host's waits for the device (its
 synchronizing runtime calls, less the profiler's opening synchronize and
@@ -158,6 +161,23 @@ def main() -> int:
         return sf_meta.read_batch(state, c4, cs)
 
     _profile("c4_unfused128", unfused, 3, args.trace)
+    del c4
+
+    # c5 (bench.py:453-465) and the tracked engine on the same 8 streams of
+    # 16 1080p frames: streams are a tensor dimension, so a call's ops
+    # stay near one stream's (c4_track_read_chunk16 beside it).
+    from camkifu_tpu_torch.parallel import mesh
+
+    c5, c5_corners, _ = chip_smoke._c5_inputs(torch.device("cuda", 0))
+    _profile("c5_read_all_streams",
+             lambda: mesh._read_all_streams(c5, c5_corners), 5, args.trace)
+    states = mesh.multistream_init_states(c5.shape[0])
+    _profile("multistream_track8x16",
+             lambda: mesh.multistream_track_read(states, c5, c5_corners), 3,
+             args.trace)
+    _profile("c4_track_read_chunk16",
+             lambda: sf_meta.track_read_batch(state, c5[0], c5_corners[0],
+                                              chunk=chunk), 3, args.trace)
     return 0
 
 
