@@ -31,13 +31,16 @@ import torch
 import torch.nn.functional as F
 
 from camkifu_tpu_torch.config import cvconf
-from camkifu_tpu_torch.ops.color import rgb_to_gray, rgb_to_gray_u8
+from camkifu_tpu_torch.ops.color import rgb_to_gray, rgb_to_gray_u8, \
+    to_float
 from camkifu_tpu_torch.ops.edges import edge_map_batch, percentile
 from camkifu_tpu_torch.ops.filters import edge_pad, sobel
 from camkifu_tpu_torch.ops.hough import hough_accumulate, top_k, \
     topk_edge_points
+from camkifu_tpu_torch.ops.lens import Lens, as_table, check_lens, \
+    distort_pts, make_lens, undistort_frame, undistort_pts
 from camkifu_tpu_torch.ops.warp import _inv3, _shifted_crop, \
-    apply_homography, homography_dlt, refuse_lens, square, warp_frames
+    apply_homography, canonical_corners, homography_dlt, square, warp_frames
 from camkifu_tpu_torch.ops.zones import median_u8
 
 #: Rectification resolution for the grid-comb refinement.
@@ -463,12 +466,15 @@ def _rect_H(quad: torch.Tensor, margin: float, res: int) -> torch.Tensor:
     return homography_dlt(square(0.0, res - 1.0, quad.device), equad)
 
 
-def _sample_rect(gray: torch.Tensor, H: torch.Tensor,
-                 res: int) -> torch.Tensor:
+def _sample_rect(gray: torch.Tensor, H: torch.Tensor, res: int,
+                 lens: Lens | None = None) -> torch.Tensor:
     """Rectify the (H, W) gray frame through ``H`` → (res, res) float32,
-    in [0, 1] for uint8 gray. Runs the warp kernel on the card."""
+    in [0, 1] for uint8 gray. Runs the warp kernel on the card. With
+    ``lens``, H maps the rect to PINHOLE frame coordinates (built on
+    undistorted corners) and the sample grid bends back through the
+    lens."""
     scale = 1.0 / 255.0 if gray.dtype == torch.uint8 else 1.0
-    rect = warp_frames(gray[None, :, :, None], H, (res, res), scale)
+    rect = warp_frames(gray[None, :, :, None], H, (res, res), scale, lens)
     return rect[0, :, :, 0]
 
 
@@ -882,6 +888,257 @@ def infer_gsize(frame: torch.Tensor, candidates: tuple[int, ...] = (9, 13, 19),
         quals[int(g)] = q if sc >= 0.1 and np.isfinite(q) else -1.0
     best = max(quals, key=lambda g: quals[g])
     return (best if quals[best] > 0.0 else 0), quals
+
+
+# ---------------------------------------------------------------------------
+# Lens (radial distortion) calibration, anchor time only: each probe reads
+# one number on the host, as the reference's sweep reads each quality.
+# ---------------------------------------------------------------------------
+
+#: Coarse calibration grid (barrel-skewed: webcams are barrel far more
+#: often than pincushion, and strong pincushion folds at the frame edge).
+#: Detection is fine below |k1| ≈ 0.015 and unrecoverable past ~0.15.
+K1_CAL_GRID = (-0.09, -0.06, -0.035, -0.015, 0.0,
+               0.015, 0.035, 0.06, 0.09, 0.13)
+
+#: Minimum lattice-evidence gain over the pinhole (k1 = 0) run before a
+#: non-zero k1 is adopted: on pinhole footage the argmax over the grid is
+#: sampling noise (≤ 7% gain on straight renders; a real lens gains 17% at
+#: k1 = 0.02 and 35%+ from 0.04 up), and a phantom lens would bend every
+#: warp.
+K1_CAL_MARGIN = 1.10
+
+
+def _line_evidence(rect: torch.Tensor) -> torch.Tensor:
+    """LINE-scale lattice evidence of a rectified board (res, res): the
+    center-surround (radii 1 and 5 px) of the Sobel energy, clipped at 0
+    and max-normalized. It is made for grid lines 1–2 rect px wide, whose
+    residual bow at Δk1 = 0.015 (~3 px mid-edge) hides inside the
+    blob-scale evidence's plateau; a line of 2 px or more reads as two
+    edge ridges with a trough on the line itself."""
+    gx, gy = sobel(rect)
+    edge = torch.abs(gx) + torch.abs(gy)
+    cs = _box_blur(edge, 1) - _box_blur(edge, 5)
+    return torch.clamp(cs, min=0.0) / torch.clamp(torch.abs(cs).max(),
+                                                  min=1e-9)
+
+
+def _detect_k1_probe(frame: torch.Tensor, k1: float, res: int = 512,
+                     gsize: int = 19):
+    """Full detection on the frame undistorted at ``k1``, and a
+    lattice-evidence quality of the result → (corners (4, 2) raw frame
+    positions, score, quality).
+
+    The frame is resampled to pinhole geometry first (``undistort_frame``,
+    one full-frame gather: calibration runs once a session) and the
+    straight-line detector runs unchanged at res 512 (at 256 the coarse
+    quad's own noise moves the objective by more than a 0.015 k1 step).
+    Quality = mean line-scale evidence at the detected quad's gsize²
+    intersections: with a wrong k1 the interior lines stay bowed and the
+    evidence drops."""
+    lens = make_lens(k1, (frame.shape[0], frame.shape[1]))
+    pin = undistort_frame(frame, lens)
+    gray, quad, score = _detect_prepare(pin, res)
+    corners = _detect_refine(gray, quad, score, gsize, 1)
+    H, _, _, rect = _rect_profiles_rect(gray, corners, gsize)
+    q = _lattice_evidence(_line_evidence(rect), _inv3(H), corners[None],
+                          gsize)[0]
+    return distort_pts(lens, corners), score, q
+
+
+def _undistort_batch(frames: torch.Tensor, lens: Lens) -> torch.Tensor:
+    """Pinhole-resample a small frame batch (B, H, W, C): one warp launch
+    (anchor-path detection only; hot paths bend their sample
+    coordinates)."""
+    return undistort_frame(frames, lens)
+
+
+def _k1_sweep(q_at, grid) -> tuple[float, float]:
+    """Coarse-grid + fine-neighborhood maximization of a k1 quality probe,
+    with the phantom-lens hysteresis shared by both calibrators."""
+    qs = [q_at(k) for k in grid]
+    q0 = qs[list(grid).index(0.0)]
+    i = int(np.argmax(qs))
+    best_k, best_q = grid[i], qs[i]
+    if best_k != 0.0:
+        lo = grid[i - 1] if i > 0 else best_k - 0.02
+        hi = grid[i + 1] if i + 1 < len(grid) else best_k + 0.02
+        for k in np.linspace(lo, hi, 7)[1:-1]:
+            q = q_at(float(k))
+            if q > best_q:
+                best_k, best_q = float(k), q
+    gain = best_q / max(q0, 1e-9)
+    if gain < K1_CAL_MARGIN or abs(best_k) < 0.01:
+        return 0.0, gain
+    return round(best_k, 4), gain
+
+
+def _k1_bow_refine(bow_at, k0: float) -> float:
+    """Two-stage scan of the |bow| objective around the evidence winner:
+    ±0.02 at 0.005 steps, then ±0.005 at ~0.0017 steps around that
+    argmin."""
+    best_k, best_b = k0, bow_at(k0)
+    for span, n in ((0.02, 9), (0.005, 7)):
+        for k in np.linspace(best_k - span, best_k + span, n):
+            bv = bow_at(float(k))
+            if bv < best_b:
+                best_k, best_b = float(k), bv
+    return round(best_k, 4)
+
+
+def _cal_zone(gsize: int) -> int:
+    """Canonical px a cell for the known-corner probes: the rect at
+    ≥ 512² (513² at 19), the resolution 0.015-step discrimination needs."""
+    return max(16, int(round(512 / gsize)))
+
+
+def estimate_lens_k1(frame: torch.Tensor, gsize: int = 19,
+                     grid=K1_CAL_GRID) -> tuple[float, float]:
+    """Estimate the radial distortion coefficient from one frame
+    (H, W, 3) → (k1, gain).
+
+    Coarse grid over k1, a fine sweep between the winner's neighbours
+    (``_detect_k1_probe``), then a bow refinement against the corners
+    detected at the adopted k1 (``_corners_bow_probe``: the bow
+    differential cancels any constant or affine residual of a ~2 px
+    corner error). gain is the winner's evidence over the pinhole run; k1
+    is 0.0 unless it clears ``K1_CAL_MARGIN``. The k1 values are Python
+    floats, and each probe's quality is read on the host.
+    """
+    def q_at(k1: float) -> float:
+        _, _, q = _detect_k1_probe(frame, k1, gsize=gsize)
+        q = float(q)
+        return q if np.isfinite(q) else -1.0
+
+    k1, gain = _k1_sweep(q_at, grid)
+    if k1 != 0.0:
+        corners, score, _ = _detect_k1_probe(frame, k1, gsize=gsize)
+        if float(score) >= 0.1 and bool(torch.isfinite(corners).all()):
+            zone = _cal_zone(gsize)
+
+            def bow_at(k: float) -> float:
+                b = float(_corners_bow_probe(frame, corners, k, gsize=gsize,
+                                             zone=zone))
+                return b if np.isfinite(b) else np.inf
+
+            k1 = _k1_bow_refine(bow_at, k1)
+    return k1, gain
+
+
+def _gray_of(frame: torch.Tensor) -> torch.Tensor:
+    """The probes' gray frame: uint8 luma of uint8 RGB, float luma of
+    float RGB."""
+    return rgb_to_gray_u8(frame) if frame.dtype == torch.uint8 \
+        else rgb_to_gray(to_float(frame))
+
+
+def _corners_rect(frame: torch.Tensor, corners: torch.Tensor, k1: float,
+                  gsize: int, zone: int):
+    """The frame rectified through known raw ``corners`` under a candidate
+    lens: the homography on their pinhole positions, the sample grid bent
+    back through the lens (the readers' sampler) → (rect (S, S), canonical
+    corners (4, 2)), S = gsize·zone."""
+    lens = make_lens(k1, (frame.shape[0], frame.shape[1]))
+    pin = undistort_pts(lens, corners.to(torch.float32))
+    cc = canonical_corners(gsize, zone, corners.device)
+    H = homography_dlt(cc, pin)
+    return _sample_rect(_gray_of(frame), H, gsize * zone, lens), cc
+
+
+def _corners_k1_probe(frame: torch.Tensor, corners: torch.Tensor, k1: float,
+                      gsize: int = 19, zone: int = 27) -> torch.Tensor:
+    """Lattice-evidence quality of KNOWN corners under a candidate k1 (the
+    manual-mode calibration probe): the frame rectified through the
+    candidate lens, scored by line-scale evidence at the canonical
+    intersections. With the true k1 the grid lines land on the canonical
+    lattice; with a wrong one the interior lines stay bowed. One warp,
+    a Sobel and two box blurs: no detection."""
+    rect, cc = _corners_rect(frame, corners, k1, gsize, zone)
+    return _lattice_evidence_rc(_line_evidence(rect), cc[None], gsize)[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _bow_windows(gsize: int, zone: int, device):
+    """The static centroid windows of ``_corners_bow_probe`` on ``device``,
+    made once per (gsize, zone, device): (tap indices (G, 2w+1) int64,
+    tap positions (G, 2w+1), line centers (G,)). Read only."""
+    centers = zone / 2.0 - 0.5 + zone * np.arange(gsize)
+    w = zone // 2 - 3
+    idx = np.round(centers).astype(np.int32)[:, None] \
+        + np.arange(-w, w + 1)[None, :]                  # (G, 2w+1)
+    return (torch.as_tensor(idx.astype(np.int64), device=device),
+            torch.as_tensor(idx.astype(np.float32), device=device),
+            torch.as_tensor(centers.astype(np.float32), device=device))
+
+
+def _corners_bow_probe(frame: torch.Tensor, corners: torch.Tensor,
+                       k1: float, gsize: int = 19,
+                       zone: int = 27) -> torch.Tensor:
+    """Mean |line bow| of the candidate-k1 rectified canvas: the k1
+    REFINEMENT objective (``_corners_k1_probe`` is the adoption one).
+
+    Residual distortion leaves grid lines bowed in the canvas: a line's
+    mid-span centroid shifts against its end spans. Per grid line,
+    sub-pixel edge-energy centroids in three bands along it give
+    bow = offset(mid) − mean(offset(outer)); the objective is mean |bow|
+    over the interior lines of both axes (the outermost two sit against
+    the board edge). Its argmin sits on the true k1 at 0.005 granularity
+    where the evidence curve is plateau-noisy. Windows are ±(zone/2 − 3)
+    px, so it only refines."""
+    rect, _ = _corners_rect(frame, corners, k1, gsize, zone)
+    res = gsize * zone
+    gx = torch.abs(torch.diff(rect, dim=1, prepend=rect[:, :1]))
+    gy = torch.abs(torch.diff(rect, dim=0, prepend=rect[:1]))
+    idx, taps, ctr = _bow_windows(gsize, zone, rect.device)
+
+    def offsets(prof: torch.Tensor) -> torch.Tensor:
+        seg = prof[idx]                                   # (G, 2w+1)
+        seg = seg - seg.amin(dim=1, keepdim=True)
+        m = torch.clamp(seg.sum(dim=1), min=1e-9)
+        return (seg * taps).sum(dim=1) / m - ctr          # (G,)
+
+    b = res // 3
+    total = None
+    for energy, mean_axis in ((gx, 0), (gy, 1)):
+        if mean_axis == 0:      # vertical lines: row bands
+            bands = (energy[:b].mean(0), energy[b:2 * b].mean(0),
+                     energy[2 * b:].mean(0))
+        else:                   # horizontal lines: column bands
+            bands = (energy[:, :b].mean(1), energy[:, b:2 * b].mean(1),
+                     energy[:, 2 * b:].mean(1))
+        o0, o1, o2 = (offsets(p) for p in bands)
+        bow = torch.abs(o1 - 0.5 * (o0 + o2))[2:-2].mean()
+        total = bow if total is None else total + bow
+    return 0.5 * total
+
+
+def estimate_lens_k1_corners(frame: torch.Tensor, corners,
+                             gsize: int = 19,
+                             grid=K1_CAL_GRID) -> tuple[float, float]:
+    """Estimate k1 from one frame whose board corners (raw frame
+    positions, tl/tr/br/bl) are KNOWN — the manual finder's calibrator —
+    → (k1, gain), with the sweep and hysteresis of
+    ``estimate_lens_k1``."""
+    corners = torch.as_tensor(np.asarray(corners, np.float32)
+                              .reshape(4, 2)).to(frame.device) \
+        if not isinstance(corners, torch.Tensor) else \
+        corners.to(frame.device, torch.float32).reshape(4, 2)
+    zone = _cal_zone(gsize)
+
+    def q_at(k1: float) -> float:
+        q = float(_corners_k1_probe(frame, corners, k1, gsize=gsize,
+                                    zone=zone))
+        return q if np.isfinite(q) else -1.0
+
+    k1, gain = _k1_sweep(q_at, grid)
+    if k1 != 0.0:
+        def bow_at(k: float) -> float:
+            b = float(_corners_bow_probe(frame, corners, k, gsize=gsize,
+                                         zone=zone))
+            return b if np.isfinite(b) else np.inf
+
+        k1 = _k1_bow_refine(bow_at, k1)
+    return k1, gain
 
 
 # ---------------------------------------------------------------------------
@@ -1380,7 +1637,7 @@ def _held_measure(profiles, ref_col, ref_row, S: int, geom, gsize: int):
 
 def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
                         gsize: int = 19, chunk: int = 8,
-                        res: int = REFINE_RES, lens=None):
+                        res: int = REFINE_RES, lens: Lens | None = None):
     """Per-frame board corners across a batch, tracked from a seed
     detection.
 
@@ -1395,11 +1652,13 @@ def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
     trip-wire for it.
 
     frames: (B, H, W, 3) uint8/float; seed_corners: (4, 2) from
-    ``detect_corners`` (or the previous batch's ``new_seed``).
+    ``detect_corners`` (or the previous batch's ``new_seed``), raw frame
+    positions. With ``lens`` the canvas is built in pinhole geometry and
+    its sample grid bends through the lens, so the lattice stays straight;
+    the corners come back distorted to raw frame positions.
     Returns (corners (B, 4, 2) float32, sharpness (B,), align (B,),
     new_seed (4, 2)).
     """
-    refuse_lens(lens)
     b = frames.shape[0]
     fc = _chunks(frames, chunk)
 
@@ -1408,11 +1667,12 @@ def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
     S = max(2, int(round(TRACK_WIN_OFFSET * s0)))
 
     def canvas(seed):
-        """Homography rect → frame of the canvas anchored on ``seed``, and
-        where the seed corners ACTUALLY land on it (4, 2): the frame-space
-        margin expansion is not affine."""
-        H = _rect_H(seed, TRACK_MARGIN, res)
-        return H, apply_homography(_inv3(H), seed)
+        """Homography rect → pinhole frame of the canvas anchored on
+        ``seed``, and where the seed corners ACTUALLY land on it (4, 2):
+        the frame-space margin expansion is not affine."""
+        pin = undistort_pts(lens, seed)
+        H = _rect_H(pin, TRACK_MARGIN, res)
+        return H, apply_homography(_inv3(H), pin)
 
     seed = seed_corners.to(torch.float32)
     H, rc_seed = canvas(seed)
@@ -1421,7 +1681,7 @@ def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
     for frames_chunk in fc:
         grays = rgb_to_gray_u8(frames_chunk)
         rects = warp_frames(grays[..., None], H, (res, res),
-                            1.0 / 255.0)[..., 0]
+                            1.0 / 255.0, lens)[..., 0]
         profiles = _split_profiles(rects, gsize)
         cols, rows = profiles[0], profiles[1]
         # The first chunk bootstraps the reference from its first frame
@@ -1444,8 +1704,8 @@ def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
         dx = dx + e_lock[0]
         dy = dy + e_lock[1]
 
-        cs = apply_homography(
-            H, _apply_similarity(rc_seed, dx, dy, theta, sigma))
+        cs = distort_pts(lens, apply_homography(
+            H, _apply_similarity(rc_seed, dx, dy, theta, sigma)))
         out_cs.append(cs)
         out_sharp.append(sharp)
         out_align.append(
@@ -1472,7 +1732,7 @@ def track_corners_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
 
 def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
                         gsize: int = 19, zone: int = 16, chunk: int = 16,
-                        pad_cells: int = 1, lens=None):
+                        pad_cells: int = 1, lens: Lens | None = None):
     """FUSED canonical rectification + per-frame board tracking.
 
     One warp launch per chunk rectifies its frames to an EXPANDED canonical
@@ -1486,22 +1746,22 @@ def rectify_track_batch(frames: torch.Tensor, seed_corners: torch.Tensor,
     translation only: in-chunk rotation is bounded by one chunk's worth,
     since the chunk hand-off re-anchors the canvas on the tracked corners.
 
-    frames: (B, H, W, 3); seed_corners: (4, 2) from ``detect_corners``.
+    frames: (B, H, W, 3); seed_corners: (4, 2) from ``detect_corners``,
+    raw frame positions; lens: the camera's ``ops.lens.Lens`` or None.
     Returns (canon (B, S, S, 3) float [0, 1] with S = gsize·zone,
              corners (B, 4, 2) frame-space, sharpness (B,), align (B,),
              new_seed (4, 2)).
 
     One stream of ``rectify_track_streams``.
     """
-    refuse_lens(lens)
     out = rectify_track_streams(frames[None], seed_corners[None], gsize,
-                                zone, chunk, pad_cells)
+                                zone, chunk, pad_cells, lens)
     return tuple(x[0] for x in out)
 
 
 def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
                           gsize: int = 19, zone: int = 16, chunk: int = 16,
-                          pad_cells: int = 1):
+                          pad_cells: int = 1, lenses: Lens | None = None):
     """``rectify_track_batch`` of n independent streams at once, the
     streams a leading tensor dimension: frames (n, B, H, W, 3), seeds
     (n, 4, 2), and every output gains the leading n. Each chunk is one warp
@@ -1509,7 +1769,13 @@ def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
     homography; the measurement, lattice lock and crop run on (n, chunk)
     stacks. The only Python loop is over chunks, and nothing in it waits
     for the device.
+
+    ``lenses``: None, one ``Lens`` of numbers for every stream, or a
+    stacked one (``ops.lens.stack_lenses``, (n,) fields), a camera a
+    stream: the chunk's warp then reads a lens a frame, its table made
+    once a call.
     """
+    check_lens(lenses)
     n_streams, b = frames.shape[0], frames.shape[1]
     dev = frames.device
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
@@ -1526,15 +1792,22 @@ def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
     S = min(pad - 2, int(round(TRACK_WIN_OFFSET * zone)))
     geom = _half_geometry(anchors, E, gsize)
 
+    # The warp's lens: shared numbers as they are, or one row a frame.
+    warp_lens = lenses
+    if lenses is not None and isinstance(lenses.k1, torch.Tensor):
+        warp_lens = as_table(lenses)[:, None].expand(n_streams, chunk, 5) \
+            .reshape(-1, 5)
+
     seed = seeds.to(torch.float32)                             # (n, 4, 2)
     ref_col = ref_row = None
     out_canon, out_cs, out_sharp, out_align = [], [], [], []
     for j in range(fc.shape[1]):
-        H = homography_dlt(anchors, seed)                      # (n, 3, 3)
+        # Raw corners, a pinhole canvas: the lattice stays straight.
+        H = homography_dlt(anchors, undistort_pts(lenses, seed))  # (n, 3, 3)
         hmats = H[:, None].expand(n_streams, chunk, 3, 3) \
             .reshape(-1, 3, 3)
         rect = warp_frames(fc[:, j].reshape(-1, *fc.shape[3:]), hmats,
-                           (E, E), scale)           # (n·chunk, E, E, 3)
+                           (E, E), scale, warp_lens)  # (n·chunk, E, E, 3)
         profiles = _split_profiles(
             rgb_to_gray(rect).reshape(n_streams, chunk, E, E), gsize)
         cols, rows = profiles[0], profiles[1]                  # (n, chunk, E)
@@ -1566,8 +1839,8 @@ def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
                               (dc - ic).reshape(-1, 2))
         out_canon.append(canon.reshape(n_streams, chunk, *canon.shape[1:]))
 
-        cs = apply_homography(
-            H[:, None], _apply_similarity(anchors, dx, dy, theta, sigma))
+        cs = distort_pts(lenses, apply_homography(
+            H[:, None], _apply_similarity(anchors, dx, dy, theta, sigma)))
         out_cs.append(cs)
         out_sharp.append(sharp)
         out_align.append(

@@ -30,6 +30,13 @@
 // - The per-pixel arithmetic is the reference's, term by term; the build
 //   disables FMA contraction, so every pixel is bitwise equal to the plain
 //   version's.
+//
+// Lens mode (camkifu_warp_lens; camkifu_tpu_torch/ops/lens.py): each source
+// coordinate is bent through a radial lens after the homography's divide
+// and before the clamp, in the order of the port's distort_pts: 15 float
+// operations a pixel and no extra byte. One lens shared by the launch comes
+// as five float arguments; a lens a frame as a (B, 5) float32 table read at
+// lenses + b * l_stride. Without a lens the kernel is compiled as before.
 #include "common.cuh"
 
 namespace {
@@ -68,11 +75,27 @@ struct Taps {
   float fx, fy;
 };
 
-__device__ __forceinline__ Taps taps_of(const float (&H)[9], float fu,
+// A radial lens (k1, cx, cy, sx, sy), in one frame's pixels.
+struct LensArgs {
+  const float* table;   // (B, 5) a lens a frame, or null: the shared one
+  int stride;
+  float k1, cx, cy, sx, sy;
+};
+
+template <bool LENS>
+__device__ __forceinline__ Taps taps_of(const float (&H)[9],
+                                        const float (&L)[5], float fu,
                                         float fv, int h, int w) {
   const float den = H[6] * fu + H[7] * fv + H[8];
   float x = (H[0] * fu + H[1] * fv + H[2]) / den;
   float y = (H[3] * fu + H[4] * fv + H[5]) / den;
+  if constexpr (LENS) {
+    const float nx = (x - L[1]) / L[3];
+    const float ny = (y - L[2]) / L[4];
+    const float f = 1.0f + L[0] * (nx * nx + ny * ny);
+    x = L[1] + nx * f * L[3];
+    y = L[2] + ny * f * L[4];
+  }
   x = x < 0.0f ? 0.0f : (x > (float)(w - 1) ? (float)(w - 1) : x);
   y = y < 0.0f ? 0.0f : (y > (float)(h - 1) ? (float)(h - 1) : y);
   const float x0f = floorf(x);
@@ -97,12 +120,12 @@ __device__ __forceinline__ float blend(float p00, float p01, float p10,
 
 // C > 0: the channel count is fixed at compile time and the taps are
 // loaded as words. C == 0: any channel count c, byte by byte.
-template <int C>
+template <int C, bool LENS>
 __global__ void __launch_bounds__(THREADS)
     warp_kernel(const uint8_t* __restrict__ frames,
                 const float* __restrict__ hmats, int h_stride,
-                float* __restrict__ out, int h, int w, int c, int oh, int ow,
-                int groups, float scale) {
+                LensArgs lens, float* __restrict__ out, int h, int w, int c,
+                int oh, int ow, int groups, float scale) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   const int v = i / groups;
   if (v >= oh) return;
@@ -113,6 +136,12 @@ __global__ void __launch_bounds__(THREADS)
   float H[9];
 #pragma unroll
   for (int j = 0; j < 9; ++j) H[j] = hmats[(size_t)b * h_stride + j];
+  float L[5] = {lens.k1, lens.cx, lens.cy, lens.sx, lens.sy};
+  if (LENS && lens.table != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      L[j] = lens.table[(size_t)b * lens.stride + j];
+  }
   const uint8_t* img = frames + (size_t)b * h * w * c;
   float* o = out + (((size_t)b * oh + v) * ow + u0) * c;
   const int n = min(PX, ow - u0);
@@ -122,7 +151,7 @@ __global__ void __launch_bounds__(THREADS)
     float res[PX * C];
 #pragma unroll
     for (int q = 0; q < PX; ++q) {
-      const Taps t = taps_of(H, (float)(u0 + q), fv, h, w);
+      const Taps t = taps_of<LENS>(H, L, (float)(u0 + q), fv, h, w);
       float p00[C], p01[C], p10[C], p11[C];
       row_taps<C>(img + (size_t)t.y0 * w * C, t.x0, t.x1, p00, p01);
       row_taps<C>(img + (size_t)t.y1 * w * C, t.x0, t.x1, p10, p11);
@@ -144,7 +173,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   } else {
     for (int q = 0; q < n; ++q) {
-      const Taps t = taps_of(H, (float)(u0 + q), fv, h, w);
+      const Taps t = taps_of<LENS>(H, L, (float)(u0 + q), fv, h, w);
       const uint8_t* r0 = img + (size_t)t.y0 * w * c;
       const uint8_t* r1 = img + (size_t)t.y1 * w * c;
       for (int ch = 0; ch < c; ++ch)
@@ -156,16 +185,37 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int C>
+template <int C, bool LENS>
 cudaError_t launch(const uint8_t* frames, const float* hmats, int h_stride,
-                   float* out, int b, int h, int w, int c, int oh, int ow,
-                   float scale, cudaStream_t stream) {
+                   const LensArgs& lens, float* out, int b, int h, int w,
+                   int c, int oh, int ow, float scale, cudaStream_t stream) {
   const int groups = (ow + PX - 1) / PX;
   const long long threads = (long long)oh * groups;
   const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS), b);
-  warp_kernel<C><<<grid, THREADS, 0, stream>>>(
-      frames, hmats, h_stride, out, h, w, c, oh, ow, groups, scale);
+  warp_kernel<C, LENS><<<grid, THREADS, 0, stream>>>(
+      frames, hmats, h_stride, lens, out, h, w, c, oh, ow, groups, scale);
   return cudaGetLastError();
+}
+
+template <bool LENS>
+int dispatch(const void* frames, const void* hmats, int h_stride,
+             const LensArgs& lens, void* out, int b, int h, int w, int c,
+             int oh, int ow, float scale, void* stream) {
+  const uint8_t* f = (const uint8_t*)frames;
+  const float* hm = (const float*)hmats;
+  float* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (c) {
+    case 1:
+      return (int)launch<1, LENS>(f, hm, h_stride, lens, o, b, h, w, c, oh,
+                                  ow, scale, st);
+    case 3:
+      return (int)launch<3, LENS>(f, hm, h_stride, lens, o, b, h, w, c, oh,
+                                  ow, scale, st);
+    default:
+      return (int)launch<0, LENS>(f, hm, h_stride, lens, o, b, h, w, c, oh,
+                                  ow, scale, st);
+  }
 }
 
 }  // namespace
@@ -174,18 +224,20 @@ CAMKIFU_API int camkifu_warp(const void* frames, const void* hmats,
                              int h_stride, void* out, int b, int h, int w,
                              int c, int oh, int ow, float scale,
                              void* stream) {
-  const uint8_t* f = (const uint8_t*)frames;
-  const float* hm = (const float*)hmats;
-  float* o = (float*)out;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (c) {
-    case 1:
-      return (int)launch<1>(f, hm, h_stride, o, b, h, w, c, oh, ow, scale, st);
-    case 3:
-      return (int)launch<3>(f, hm, h_stride, o, b, h, w, c, oh, ow, scale, st);
-    default:
-      return (int)launch<0>(f, hm, h_stride, o, b, h, w, c, oh, ow, scale, st);
-  }
+  const LensArgs none = {nullptr, 0, 0.0f, 0.0f, 0.0f, 1.0f, 1.0f};
+  return dispatch<false>(frames, hmats, h_stride, none, out, b, h, w, c, oh,
+                         ow, scale, stream);
+}
+
+CAMKIFU_API int camkifu_warp_lens(const void* frames, const void* hmats,
+                                  int h_stride, const void* lenses,
+                                  int l_stride, float k1, float cx, float cy,
+                                  float sx, float sy, void* out, int b, int h,
+                                  int w, int c, int oh, int ow, float scale,
+                                  void* stream) {
+  const LensArgs lens = {(const float*)lenses, l_stride, k1, cx, cy, sx, sy};
+  return dispatch<true>(frames, hmats, h_stride, lens, out, b, h, w, c, oh,
+                        ow, scale, stream);
 }
 
 CAMKIFU_API const char* camkifu_error_string(int code) {

@@ -38,6 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "camkifu_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "camkifu_warp_lens": [_P, _P, _I, _P, _I, _F, _F, _F, _F, _F, _P, _I,
+                          _I, _I, _I, _I, _I, _F, _P],
     "camkifu_edge": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_F),
                      _P],
     "camkifu_edge_taps": [],

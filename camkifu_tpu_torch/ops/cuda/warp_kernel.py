@@ -16,7 +16,10 @@ fused in.
 
 Contract (both versions): (B, H, W, C) frames, one (3, 3) or (B, 3, 3)
 float32 homography mapping output (u, v) to frame (x, y) → (B, OH, OW, C)
-float32 bilinear samples × ``scale``, clamped to the frame's edge.
+float32 bilinear samples × ``scale``, clamped to the frame's edge. In lens
+mode (``ops/lens.py``) each source coordinate is bent through a radial
+lens after the homography's divide and before the clamp: a few float
+operations a pixel and no extra byte.
 """
 
 from __future__ import annotations
@@ -25,17 +28,20 @@ import torch
 
 from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.cuda import _build
+from camkifu_tpu_torch.ops.lens import Lens, distort_pts
 from camkifu_tpu_torch.ops.warp import bilinear_sample, canonical_corners, \
     homography_dlt
 
-#: Kernel launches since the last reset (one per call on a CUDA tensor).
+#: Kernel launches since the last reset (one per call on a CUDA tensor),
+#: and how many of them ran in lens mode.
 launches = 0
+lens_launches = 0
 
 #: The grid's z dimension carries the batch.
 MAX_BATCH = 65535
 
 
-def _check(frames: torch.Tensor, hmats: torch.Tensor) -> None:
+def _check(frames: torch.Tensor, hmats: torch.Tensor, lens=None) -> None:
     if frames.ndim != 4:
         raise ValueError(f"warp takes (B, H, W, C) frames, got "
                          f"{tuple(frames.shape)}")
@@ -44,22 +50,33 @@ def _check(frames: torch.Tensor, hmats: torch.Tensor) -> None:
     if hmats.shape not in ((3, 3), (frames.shape[0], 3, 3)):
         raise ValueError(f"warp takes (3, 3) or (B, 3, 3) homographies, got "
                          f"{tuple(hmats.shape)}")
+    if isinstance(lens, torch.Tensor):
+        if lens.dtype != torch.float32 or lens.shape != (frames.shape[0], 5):
+            raise ValueError(f"a lens per frame is a (B, 5) float32 tensor, "
+                             f"got {tuple(lens.shape)} {lens.dtype}")
+    elif lens is not None and len(lens) != 5:
+        raise ValueError("a shared lens is five numbers (k1, cx, cy, sx, sy)")
 
 
 def warp_homography(frames: torch.Tensor, hmats: torch.Tensor,
-                    out_hw: tuple[int, int],
-                    scale: float = 1.0) -> torch.Tensor:
+                    out_hw: tuple[int, int], scale: float = 1.0,
+                    lens=None) -> torch.Tensor:
     """The CUDA kernel; contiguous uint8 frames and float32 homographies
-    on one CUDA device."""
-    global launches
-    _check(frames, hmats)
+    on one CUDA device. ``lens``: None, five numbers (k1, cx, cy, sx, sy)
+    shared by the launch and passed as kernel arguments, or a contiguous
+    (B, 5) float32 tensor on the frames' device, a lens a frame."""
+    global launches, lens_launches
+    _check(frames, hmats, lens)
     if frames.dtype != torch.uint8:
         raise TypeError(f"the warp kernel takes uint8 frames, got "
                         f"{frames.dtype}")
-    if not (frames.is_cuda and hmats.device == frames.device):
+    per_frame = isinstance(lens, torch.Tensor)
+    if not (frames.is_cuda and hmats.device == frames.device
+            and (not per_frame or lens.device == frames.device)):
         raise ValueError("warp_homography launches on CUDA tensors of one "
                          "device only; use warp_homography_ref on the CPU")
-    if not (frames.is_contiguous() and hmats.is_contiguous()):
+    if not (frames.is_contiguous() and hmats.is_contiguous()
+            and (not per_frame or lens.is_contiguous())):
         raise ValueError("warp_homography needs contiguous tensors")
     b, h, w, c = frames.shape
     if b > MAX_BATCH:
@@ -69,24 +86,36 @@ def warp_homography(frames: torch.Tensor, hmats: torch.Tensor,
                       device=frames.device)
     if out.numel():
         lib = _build.lib()
+        h_stride = 0 if hmats.ndim == 2 else 9
+        stream = _build.stream_handle(frames.device)
         with torch.cuda.device(frames.device):
-            code = lib.camkifu_warp(frames.data_ptr(), hmats.data_ptr(),
-                                    0 if hmats.ndim == 2 else 9,
-                                    out.data_ptr(), b, h, w, c, oh, ow,
-                                    float(scale),
-                                    _build.stream_handle(frames.device))
+            if lens is None:
+                code = lib.camkifu_warp(frames.data_ptr(), hmats.data_ptr(),
+                                        h_stride, out.data_ptr(), b, h, w, c,
+                                        oh, ow, float(scale), stream)
+            else:
+                table = lens.data_ptr() if per_frame else None
+                shared = (0.0,) * 5 if per_frame else tuple(map(float, lens))
+                code = lib.camkifu_warp_lens(
+                    frames.data_ptr(), hmats.data_ptr(), h_stride, table,
+                    5, *shared, out.data_ptr(), b, h, w, c, oh, ow,
+                    float(scale), stream)
         _build.check(code, "warp")
         launches += 1
+        lens_launches += lens is not None
     return out
 
 
 def warp_homography_ref(frames: torch.Tensor, hmats: torch.Tensor,
-                        out_hw: tuple[int, int],
-                        scale: float = 1.0) -> torch.Tensor:
+                        out_hw: tuple[int, int], scale: float = 1.0,
+                        lens=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel's contract (any dtype, any
-    device): the source coordinates term by term, then explicit tap
-    indexing and the bilinear blend (``ops.warp.bilinear_sample``)."""
-    _check(frames, hmats)
+    device): the source coordinates term by term, bent through the lens by
+    ``ops.lens.distort_pts`` in float32 tensors on the frames' device (not
+    Python numbers: the card divides by those through their reciprocal),
+    then explicit tap indexing and the bilinear blend
+    (``ops.warp.bilinear_sample``)."""
+    _check(frames, hmats, lens)
     oh, ow = out_hw
     dev = frames.device
     v = torch.arange(oh, dtype=torch.float32, device=dev)[:, None]
@@ -95,6 +124,13 @@ def warp_homography_ref(frames: torch.Tensor, hmats: torch.Tensor,
     den = H[:, 2, 0] * u + H[:, 2, 1] * v + H[:, 2, 2]       # (B|1, OH, OW)
     x = (H[:, 0, 0] * u + H[:, 0, 1] * v + H[:, 0, 2]) / den
     y = (H[:, 1, 0] * u + H[:, 1, 1] * v + H[:, 1, 2]) / den
+    if lens is not None:
+        table = lens.to(dev) if isinstance(lens, torch.Tensor) else \
+            torch.tensor([float(f) for f in lens], dtype=torch.float32,
+                         device=dev)
+        src = distort_pts(Lens(*table.unbind(-1)),
+                          torch.stack([x, y], -1))
+        x, y = src[..., 0], src[..., 1]
     return bilinear_sample(frames, x, y) * scale
 
 

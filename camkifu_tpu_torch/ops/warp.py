@@ -8,7 +8,9 @@ Intersection (r, c) of the canonical board sits at ((c + 0.5) z - 0.5,
 
 Every function here takes leading batch dims where the reference vmaps.
 The frame warp runs the CUDA kernel on a CUDA tensor and its plain version
-on the CPU (``warp_frames``).
+on the CPU (``warp_frames``). With a ``lens`` (``ops/lens.py``) corners
+stay raw frame positions: the homography is built on their pinhole
+positions and the warp bends its sample grid back through the lens.
 """
 
 from __future__ import annotations
@@ -19,15 +21,7 @@ import math
 import torch
 
 from camkifu_tpu_torch.config import cvconf, guiconf
-
-
-def refuse_lens(lens) -> None:
-    """The entry points that take the reference's ``lens`` argument accept
-    only None until the lens model is ported."""
-    if lens is not None:
-        raise NotImplementedError(
-            "the lens model is ROADMAP Queue A item 5 (ops/lens.py), not "
-            "ported yet; pass lens=None")
+from camkifu_tpu_torch.ops.lens import Lens, check_lens, undistort_pts
 
 
 @functools.lru_cache(maxsize=32)
@@ -159,28 +153,38 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
 
 
 def warp_frames(frames: torch.Tensor, hmats: torch.Tensor,
-                out_hw: tuple[int, int], scale: float = 1.0) -> torch.Tensor:
+                out_hw: tuple[int, int], scale: float = 1.0,
+                lens: Lens | torch.Tensor | None = None) -> torch.Tensor:
     """(B, H, W, C) frames → (B, OH, OW, C) float32 samples ×``scale``:
-    output pixel (u, v) samples the frame at ``hmats`` @ (u, v, 1).
+    output pixel (u, v) samples the frame at ``hmats`` @ (u, v, 1), bent
+    through ``lens`` if one is given.
 
     ``hmats`` is one (3, 3) homography shared by the batch or (B, 3, 3).
-    A CUDA tensor goes through the warp kernel (uint8 only), a CPU tensor
-    through its plain version.
+    ``lens`` is a ``Lens`` of numbers shared by the batch, or a (B, 5)
+    table (``ops.lens.as_table`` of a stacked lens), a lens a frame. A CUDA
+    tensor goes through the warp kernel (uint8 only), a CPU tensor through
+    its plain version.
     """
     from camkifu_tpu_torch.ops.cuda import warp_kernel
 
+    if lens is not None and not isinstance(lens, torch.Tensor):
+        check_lens(lens)
+        lens = tuple(lens)
     hmats = hmats.contiguous()
+    args = (frames, hmats, out_hw, scale) + (() if lens is None else (lens,))
     if frames.is_cuda:
-        return warp_kernel.warp_homography(frames, hmats, out_hw, scale)
-    return warp_kernel.warp_homography_ref(frames, hmats, out_hw, scale)
+        return warp_kernel.warp_homography(*args)
+    return warp_kernel.warp_homography_ref(*args)
 
 
 def warp_batch_fixed(frames: torch.Tensor, corners: torch.Tensor,
                      gsize: int = guiconf.gsize,
                      zone: int = cvconf.zone_size,
-                     scale: float = 1.0) -> torch.Tensor:
-    """(B, H, W, C) frames + one fixed (4, 2) corner set → (B, S, S, C),
-    S = gsize·zone, in the frame's scale times ``scale``."""
+                     scale: float = 1.0,
+                     lens: Lens | None = None) -> torch.Tensor:
+    """(B, H, W, C) frames + one fixed (4, 2) corner set (raw frame
+    positions) → (B, S, S, C), S = gsize·zone, in the frame's scale times
+    ``scale``."""
     if corners.ndim != 2:
         raise ValueError(f"warp_batch_fixed takes one (4, 2) corner set, got "
                          f"{tuple(corners.shape)}; per-frame corners go "
@@ -191,15 +195,16 @@ def warp_batch_fixed(frames: torch.Tensor, corners: torch.Tensor,
     # bits as it does alone (a batched 3×3 product rounds unlike a lone
     # one on the CPU).
     H = homography_dlt(canonical_corners(gsize, zone, corners.device),
-                       corners[None])[0]
-    return warp_frames(frames, H, (size, size), scale)
+                       undistort_pts(lens, corners)[None])[0]
+    return warp_frames(frames, H, (size, size), scale, lens)
 
 
 def warp_to_canonical(frame: torch.Tensor, corners: torch.Tensor,
                       gsize: int = guiconf.gsize,
-                      zone: int = cvconf.zone_size) -> torch.Tensor:
+                      zone: int = cvconf.zone_size,
+                      lens: Lens | None = None) -> torch.Tensor:
     """Rectify one frame (H, W, C) to the canonical (gsize·zone)² image."""
-    return warp_batch_fixed(frame[None], corners, gsize, zone)[0]
+    return warp_batch_fixed(frame[None], corners, gsize, zone, lens=lens)[0]
 
 
 def _shifted_crop(src: torch.Tensor, origin: torch.Tensor | None, size: int,
@@ -255,7 +260,8 @@ def _subpixel_shift(img: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
 def warp_batch_chunked(frames: torch.Tensor, corners: torch.Tensor,
                        gsize: int = guiconf.gsize,
                        zone: int = cvconf.zone_size, chunk: int = 8,
-                       scale: float = 1.0) -> torch.Tensor:
+                       scale: float = 1.0,
+                       lens: Lens | None = None) -> torch.Tensor:
     """(B, H, W, C) frames + (B, 4, 2) per-frame corners → (B, S, S, C),
     in the frame's scale times ``scale``.
 
@@ -264,7 +270,9 @@ def warp_batch_chunked(frames: torch.Tensor, corners: torch.Tensor,
     residual camera motion is then removed by shifting its canonical image
     by the mean displacement of its own corners in that view (a sub-pixel
     translation, ``_subpixel_shift``). B need not be a multiple of
-    ``chunk``: the last frame is repeated and the repeats dropped.
+    ``chunk``: the last frame is repeated and the repeats dropped. With a
+    ``lens`` both the chunk's homography and the landed corners are taken
+    on pinhole positions.
     """
     b = frames.shape[0]
     corners = corners.to(torch.float32)
@@ -279,13 +287,14 @@ def warp_batch_chunked(frames: torch.Tensor, corners: torch.Tensor,
     # jnp.median does; torch.median would return the lower one.
     cc = torch.quantile(cb, 0.5, dim=1)                      # (k, 4, 2)
     ideal = canonical_corners(gsize, zone, corners.device)
-    hmats = homography_dlt(ideal, cc)                        # (k, 3, 3)
+    hmats = homography_dlt(ideal, undistort_pts(lens, cc))   # (k, 3, 3)
     canon = torch.cat([
         warp_frames(frames[i * chunk:(i + 1) * chunk], hmats[i], (size, size),
-                    scale) for i in range(k)])
+                    scale, lens) for i in range(k)])
     # Where each frame's true corners land in its chunk's canonical view;
     # their mean displacement from the ideal anchors is the residual camera
     # translation.
-    landed = apply_homography(_inv3(hmats)[:, None], cb)     # (k, chunk, 4, 2)
+    landed = apply_homography(_inv3(hmats)[:, None],
+                              undistort_pts(lens, cb))       # (k, chunk, 4, 2)
     offsets = (landed - ideal).mean(dim=2).reshape(k * chunk, 2)
     return _subpixel_shift(canon, offsets)[:b]

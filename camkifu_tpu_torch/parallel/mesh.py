@@ -19,8 +19,9 @@ import torch
 
 from camkifu_tpu_torch.board.bf_auto import rectify_track_streams
 from camkifu_tpu_torch.config import cvconf, guiconf
+from camkifu_tpu_torch.ops.lens import Lens
 from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt, \
-    refuse_lens, warp_frames
+    warp_frames
 from camkifu_tpu_torch.stone import sf_clustering, sf_meta
 
 
@@ -94,22 +95,24 @@ def multistream_read_meta(states: sf_meta.MetaState, frames: torch.Tensor,
 
 def multistream_track_read(states: sf_meta.MetaState, frames: torch.Tensor,
                            seeds: torch.Tensor, gsize: int = guiconf.gsize,
-                           zone: int = cvconf.zone_size, lenses=None):
+                           zone: int = cvconf.zone_size,
+                           lenses: Lens | None = None):
     """Config 4 × config 5 (the reference's ``_track_all_streams`` under a
     mesh): the fused tracking engine (per-frame board tracking,
     rectification, classification, vote scan) over n independent handheld
     streams, the stream-batched tracker (one warp launch a chunk for every
     stream) then the stream-batched vote scan. Each stream's seed (its
     last detection or previous ``new_seed``) re-anchors at its own last
-    frame. Nothing in the call waits for the device. ``lenses`` other than
-    None raises (the lens model is not ported yet).
+    frame. Nothing in the call waits for the device. ``lenses``: None, or
+    each stream's camera as one stacked ``ops.lens.Lens``
+    (``stack_lenses``, made once and held across calls; independent
+    streams come from different cameras), or one ``Lens`` for all.
 
     Returns (states, labels (n, B, g, g), conf, agitation (n, B), corners
     (n, B, 4, 2), sharpness (n, B), align (n, B), new_seeds (n, 4, 2)).
     """
-    refuse_lens(lenses)
     canon, corners, sharp, align, new_seeds = rectify_track_streams(
-        frames, seeds, gsize=gsize, zone=zone)
+        frames, seeds, gsize=gsize, zone=zone, lenses=lenses)
     new_states, labels, conf, agitation = sf_meta.scan_streams(
         states, canon, gsize, zone)
     return (new_states, labels, conf, agitation, corners, sharp, align,

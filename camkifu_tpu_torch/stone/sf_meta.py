@@ -21,8 +21,7 @@ from camkifu_tpu_torch.board.bf_auto import rectify_track_batch
 from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.ops.color import rgb_to_gray
-from camkifu_tpu_torch.ops.warp import refuse_lens, warp_batch_chunked, \
-    warp_batch_fixed
+from camkifu_tpu_torch.ops.warp import warp_batch_chunked, warp_batch_fixed
 from camkifu_tpu_torch.ops.zones import zone_stats
 from camkifu_tpu_torch.stone import sf_clustering, sf_contours
 from camkifu_tpu_torch.stone.votes import vote_update, zone_motion_gate
@@ -106,15 +105,16 @@ def read_batch(state: MetaState, frames: torch.Tensor,
 
     frames: (B, H, W, 3) uint8 (or float in [0, 1] on the CPU); corners:
     (4, 2), one fixed camera, or (B, 4, 2), one set per frame (a tracked
-    camera, through ``warp_batch_chunked``). valid_count: frames at index
-    ≥ it are capture padding (repeats of the last real frame) and cast no
-    votes.
+    camera, through ``warp_batch_chunked``), raw frame positions.
+    valid_count: frames at index ≥ it are capture padding (repeats of the
+    last real frame) and cast no votes. lens: an ``ops.lens.Lens`` of the
+    camera, or None for a pinhole one.
     Returns (state, labels (B, g, g) int8, conf (B, g, g), agitation (B,)).
     """
-    refuse_lens(lens)
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
     warp = warp_batch_chunked if corners.ndim == 3 else warp_batch_fixed
-    canon = warp(frames, corners.to(torch.float32), gsize, zone, scale=scale)
+    canon = warp(frames, corners.to(torch.float32), gsize, zone, scale=scale,
+                 lens=lens)
     return _scan_canonical(state, canon, gsize, zone, neural_params,
                            valid_count)
 
@@ -233,7 +233,8 @@ def track_read_batch(state: MetaState, frames: torch.Tensor,
 
     frames: (B, H, W, 3); seed_corners: (4, 2) from a full detection or
     the previous batch's ``new_seed`` (a host re-detects at its own
-    cadence and re-anchors the seed).
+    cadence and re-anchors the seed). lens: the camera's ``ops.lens.Lens``
+    (``bf_auto.estimate_lens_k1`` calibrates k1), or None.
     Returns (state, labels, conf, agitation, corners (B, 4, 2),
     sharpness (B,), align (B,), new_seed (4, 2)).
     """

@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``camkifu_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes the paths give it, then drives seven paths
+PyTorch version at the shapes the paths give it, then drives eight paths
 once each, counting kernel launches per path:
 
 - the still path: one board detection on a 1080p still
@@ -27,7 +27,13 @@ once each, counting kernel launches per path:
   ``multistream_track_read``, each stream held to its single-stream call;
 - c5: 8 streams × 16 1080p frames, each its own board, through
   ``parallel.mesh._read_all_streams``, then the same frames through
-  ``multistream_track_read``.
+  ``multistream_track_read``;
+- the radial lens: k1 calibrated on 1080p boards through a lens
+  (``bf_auto.estimate_lens_k1`` by detection, ``estimate_lens_k1_corners``
+  from known corners), then a seeded 10-move handheld game at 720p
+  through a k1 = 0.06 lens, calibrated on its first frame and read with
+  ``sf_meta.track_read_batch(lens=...)``, and four cameras with four
+  lenses through ``multistream_track_read(lenses=...)``.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -148,6 +154,34 @@ C5_SHIFTS = ((-40, -30), (40, 30))
 #: seen by 4 cameras at integer translations (px), in batches of 16.
 MS_SHIFTS = ((0, 0), (12, -8), (-10, 6), (6, 10))
 MS_BATCH = 16
+#: The lens (``camkifu_tpu_torch/ops/lens.py``): the boards the
+#: calibrators are held on at 1080p (tests/test_lens_e2e.py's board: 60
+#: stones, seed 13) and their tolerances on k1 (that file's); the lens game
+#: (the handheld game through k1 = 0.06); the four cameras of the
+#: multi-stream lens game and the frames each films. Grid lines are drawn
+#: 0.045 cell wide (a goban's 1 mm on 22 mm): the line-scale evidence both
+#: calibrators maximize reads bold 0.08-cell lines as two edges and picks a
+#: phantom k1 of ±0.015 on a pinhole board.
+LENS_DETECT_K1 = (0.06, -0.05)
+LENS_DETECT_TOL = 0.010
+LENS_CORNERS_K1 = (0.08, -0.06)
+LENS_CORNERS_TOL = 0.004
+LENS_LINE_WIDTH = 0.045
+LENS_GAME_K1 = 0.06
+LENS_MS_K1 = (0.0, 0.03, 0.06, -0.04)
+LENS_MS_FRAMES = 32
+#: A lens stream's tracked corners against its single-stream call, px.
+#: The tracker's accept/reject gates sit on knife edges in these games: on
+#: the CPU, a one-ulp change of the seed moves a stream's tracked corners
+#: by 0.09–0.13 px in three of eight (k1, line width) streams, and on the
+#: card a stream rounds by the batch's size (MS_STREAM_TOL_PX). A stream
+#: read through another stream's lens or camera is off by ≥ 10 px; the
+#: card and the CPU are held to this tolerance too.
+LENS_MS_STREAM_TOL_PX = TOL_CPU_PX
+#: The warp's lens mode per output pixel, counted from warp.cu: the
+#: normalization (2 sub, 2 div), the radial factor (3 mul, 2 add) and the
+#: bend back (4 mul, 2 add).
+LENS_OPS_PX = 15
 #: A stream's tracked corners against its single-stream call, px. On the
 #: CPU the two are bitwise equal; on the card reductions and batched solves
 #: round by the batch's size, which the tracker's seed hand-off carries
@@ -228,13 +262,16 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_warp(frames, out_hw: tuple[int, int]) -> tuple[float, str]:
+def bound_warp(frames, out_hw: tuple[int, int],
+               lens: bool = False) -> tuple[float, str]:
     """float32 output written once, and four C-byte taps an output pixel
-    (no more than the frames hold)."""
+    (no more than the frames hold); in lens mode the bend's operations
+    too (its parameters are 20 bytes a frame at most)."""
     b, _, _, c = frames.shape
     px = b * out_hw[0] * out_hw[1]
     taps = min(4 * c * px, frames.numel() * frames.element_size())
-    return _bound(4 * c * px + taps, px * (WARP_OPS_PX + c * WARP_OPS_VALUE))
+    ops = WARP_OPS_PX + c * WARP_OPS_VALUE + (LENS_OPS_PX if lens else 0)
+    return _bound(4 * c * px + taps + (20 * b if lens else 0), px * ops)
 
 
 def bound_edge(x) -> tuple[float, str]:
@@ -323,14 +360,18 @@ def edge_at(x, cols: int, rows: int):
         taps, stream), "edge")
 
 
-def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float):
+def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float,
+                     lens=None):
     """The library yardstick of the warp: ``F.grid_sample`` (bilinear,
     border padding, align_corners) on the frames as float32 NCHW, through
     a normalised grid built from ``H`` ((3, 3), or (B, 3, 3) a frame each)
-    beforehand; returns the call. The float copy and the grid are made
-    here, outside any timed window."""
+    and bent through ``lens`` (five numbers, or a (B, 5) table) beforehand;
+    returns the call. The float copy and the grid are made here, outside
+    any timed window."""
     import torch
     import torch.nn.functional as F
+
+    from camkifu_tpu_torch.ops.lens import Lens, distort_pts
 
     b, h, w, _ = frames.shape
     oh, ow = out_hw
@@ -341,6 +382,11 @@ def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float):
     den = Hb[:, 2, 0] * u + Hb[:, 2, 1] * v + Hb[:, 2, 2]
     x = (Hb[:, 0, 0] * u + Hb[:, 0, 1] * v + Hb[:, 0, 2]) / den
     y = (Hb[:, 1, 0] * u + Hb[:, 1, 1] * v + Hb[:, 1, 2]) / den
+    if lens is not None:
+        table = lens if isinstance(lens, torch.Tensor) else torch.tensor(
+            [float(f) for f in lens], device=dev)
+        src = distort_pts(Lens(*table.unbind(-1)), torch.stack([x, y], -1))
+        x, y = src[..., 0], src[..., 1]
     grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], dim=-1)
     grid = grid.expand(b, oh, ow, 2).contiguous()
     xf = frames.permute(0, 3, 1, 2).float().contiguous()
@@ -373,6 +419,8 @@ def _reset_counts() -> None:
         m.launches = 0
         if hasattr(m, "sizes"):
             m.sizes.clear()
+        if hasattr(m, "lens_launches"):
+            m.lens_launches = 0
 
 
 def _read_counts() -> dict:
@@ -400,17 +448,20 @@ def phase_build(_build) -> None:
             print(f"  ptxas: {line.strip()}", flush=True)
 
 
-def _check_warp(frames, H, out_hw: tuple[int, int], label: str) -> float:
+def _check_warp(frames, H, out_hw: tuple[int, int], label: str,
+                lens=None, scale: float = 1.0 / 255.0) -> float:
     """The warp kernel against its plain version on u8 ``frames``
-    (B, H, W, C) through one homography, in [0, 1] scale: bitwise equal.
-    Returns the largest difference."""
+    (B, H, W, C) through one homography (or one a frame), bent through
+    ``lens`` if given, in ``scale``: bitwise equal. Returns the largest
+    difference."""
     import torch
 
     from camkifu_tpu_torch.ops.cuda import warp_kernel
 
     H = H.contiguous()
-    a = warp_kernel.warp_homography(frames, H, out_hw, 1.0 / 255.0)
-    b = warp_kernel.warp_homography_ref(frames, H, out_hw, 1.0 / 255.0)
+    extra = () if lens is None else (lens,)
+    a = warp_kernel.warp_homography(frames, H, out_hw, scale, *extra)
+    b = warp_kernel.warp_homography_ref(frames, H, out_hw, scale, *extra)
     torch.cuda.synchronize()
     err = float((a - b).abs().max())
     same = torch.equal(a, b)
@@ -509,15 +560,16 @@ def _edge_cases(x, path: str, label: str, main: bool = False) -> list[dict]:
     hysteresis on the edge kernel's magnitudes and their own thresholds."""
     from camkifu_tpu_torch.ops.cuda import edge_kernel, hysteresis_kernel
 
+    side = f"{x.shape[-1]}²"
     cases = [_case(
-        "edge", f"N = {x.shape[0]}, 256²", path,
+        "edge", f"N = {x.shape[0]}, {side}", path,
         lambda: edge_kernel.edge_magnitude(x),
         lambda: edge_kernel.edge_magnitude_ref(x),
         _check_edge(x, label), bound_edge(x), main=main, rows=x)]
     mags = edge_kernel.edge_magnitude(x)
     low, high = _thresholds(mags)
     cases.append(_case(
-        "hysteresis", f"N = {x.shape[0]}, 256², {HYSTERESIS_ITERS} steps",
+        "hysteresis", f"N = {x.shape[0]}, {side}, {HYSTERESIS_ITERS} steps",
         path,
         lambda: hysteresis_kernel.hysteresis(mags, low, high,
                                              HYSTERESIS_ITERS),
@@ -1722,6 +1774,482 @@ def phase_multistream_times(c5: dict, c4_track_ms: float, card: str) -> dict:
     return {"cases": cases, "ms": med, "fps": n / med * 1e3}
 
 
+def _lens_labels() -> "np.ndarray":
+    """tests/test_lens_e2e.py's board: 60 stones, seed 13."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    labels = np.zeros((19, 19), np.int8)
+    idx = rng.choice(361, 60, replace=False)
+    labels.flat[idx[:30]] = 1
+    labels.flat[idx[30:]] = 2
+    return labels
+
+
+def _lens_stills(k1s, dev) -> dict:
+    """{k1: (1080p frame on ``dev``, true raw corners)} of the lens board
+    through each lens, rendered on threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from camkifu_tpu_torch.utils.still import render_still
+
+    labels = _lens_labels()
+    with ThreadPoolExecutor(max_workers=len(k1s)) as pool:
+        out = list(pool.map(lambda k: render_still(
+            labels, frame_hw=FRAME_HW, seed=5, lens_k1=k,
+            line_width=LENS_LINE_WIDTH), k1s))
+    return {k: (torch.from_numpy(f).to(dev), c) for k, (f, c) in
+            zip(k1s, out)}
+
+
+def _lens_counts() -> int:
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+
+    return warp_kernel.lens_launches
+
+
+def phase_lens(dev) -> dict:
+    """The lens path once, counting launches: both calibrators on 1080p
+    lens boards held to the truth, then the lens game, a seeded 10-move
+    handheld game at 720p through k1 = 0.06: k1 calibrated on its first
+    frame, the seed detected at that k1, then ``track_read_batch`` with the
+    lens in batches of 16 (from the second batch any call that makes the
+    host wait is an error) to its kifu; the same game tracked from its true
+    first corners; its first frames through ``device="cpu"``; and,
+    ungated, the same game read without the lens."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.core.gamesync import MoveExtractor, score_moves
+    from camkifu_tpu_torch.ops.lens import make_lens
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import (handheld_corners, render_game,
+                                                sample_moves)
+
+    t0 = time.perf_counter()
+    stills = _lens_stills(LENS_DETECT_K1 + LENS_CORNERS_K1 + (0.0,), dev)
+    moves = sample_moves(HANDHELD_MOVES, seed=5)
+    fpm = cvconf.vote_window + 3
+    n_frames = 6 + HANDHELD_MOVES * fpm
+    frames, truth = render_game(
+        moves, fpm, frame_hw=HANDHELD_HW, seed=5, empty_leadin=6,
+        corners=handheld_corners(n_frames, HANDHELD_HW),
+        workers=HANDHELD_RENDER_THREADS, lens_k1=LENS_GAME_K1,
+        line_width=LENS_LINE_WIDTH)
+    t_render = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    cal = {}
+    for k in LENS_DETECT_K1 + (0.0,):
+        frame, gt = stills[k]
+        est, gain = bf_auto.estimate_lens_k1(frame)
+        corners, score, _ = bf_auto._detect_k1_probe(frame, est)
+        cell = float(np.linalg.norm(gt[1] - gt[0]) / 18)
+        err = float(np.abs(corners.cpu().numpy() - gt).max()) / cell
+        cal[("detect", k)] = (est, gain, err)
+    for k in LENS_CORNERS_K1 + (0.0,):
+        frame, gt = stills[k]
+        cal[("corners", k)] = bf_auto.estimate_lens_k1_corners(frame, gt) \
+            + (0.0,)
+    t_cal = time.perf_counter() - t0
+
+    def batches():
+        for lo in range(0, n_frames, HANDHELD_BATCH):
+            fb = frames[lo:lo + HANDHELD_BATCH]
+            n = fb.shape[0]
+            if n < HANDHELD_BATCH:            # capture padding
+                fb = np.concatenate(
+                    [fb, np.repeat(fb[-1:], HANDHELD_BATCH - n, 0)])
+            yield lo, n, torch.from_numpy(fb)
+
+    def read_game(lens, seed, device):
+        """The game through ``track_read_batch`` → (moves, corners, labels
+        and corners of the batches below HANDHELD_CPU_FRAMES)."""
+        state = sf_meta.init_state(device=device)
+        ex = MoveExtractor()
+        corners, first = [], {}
+        try:
+            for lo, n, fb in batches():
+                if device == "cpu" and lo >= HANDHELD_CPU_FRAMES:
+                    break
+                fb = fb.to(device)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                    if lo:
+                        torch.cuda.set_sync_debug_mode("error")
+                out = sf_meta.track_read_batch(state, fb, seed,
+                                               chunk=C4_CHUNK, valid_count=n,
+                                               lens=lens)
+                torch.cuda.set_sync_debug_mode("default")
+                state, labels, _, _, cs, _, _, seed = out
+                if lo < HANDHELD_CPU_FRAMES:
+                    first[lo] = (labels.cpu(), cs.cpu())
+                corners.append(cs[:n].cpu().numpy())
+                for lab in labels[:n].cpu().numpy():
+                    ex.advance(lab)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return ex.moves, np.concatenate(corners), first
+
+    t0 = time.perf_counter()
+    frame0 = torch.from_numpy(frames[0]).to(dev)
+    k1, gain = bf_auto.estimate_lens_k1(frame0)
+    seed0, score, _ = bf_auto._detect_k1_probe(frame0, k1)
+    lens = make_lens(k1, HANDHELD_HW)
+    game_moves, tracked, first = read_game(lens, seed0, dev)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    lens_warps = _lens_counts()
+    t_run = time.perf_counter() - t0
+
+    report = score_moves(game_moves, moves)
+    cell = float(np.linalg.norm(truth[0][1] - truth[0][0]) / 18)
+    seed_cells = float(np.abs(seed0.cpu().numpy() - truth[0]).max()) / cell
+    err_cells = float(np.abs(tracked - truth).max()) / cell
+    # The same game tracked from its true first corners, as the
+    # reference's tracking tests seed it (tests/test_tracking.py): the
+    # probe seed's own error rides on every frame of the run above, which
+    # is held as the reference holds an imperfect seed (its error must not
+    # grow by more than the tolerance).
+    _, from_truth, _ = read_game(lens, torch.from_numpy(truth[0]).to(dev),
+                                 dev)
+    true_cells = float(np.abs(from_truth - truth).max()) / cell
+    for (how, k), (est, g, err) in cal.items():
+        tol = LENS_DETECT_TOL if how == "detect" else LENS_CORNERS_TOL
+        exact = ", exactly 0" if k == 0 else ""
+        print(f"lens calibration by {how} on a {FRAME_HW[0]}p board through "
+              f"k1 = {k}: k1 {est} (tol {tol}{exact}), gain {g:.4f}"
+              + (f", probe corners within {err:.4f} cell (tol "
+                 f"{HANDHELD_TOL_CELLS})" if how == "detect" else ""),
+              flush=True)
+        if k == 0.0:
+            _require(est == 0.0, f"lens: a phantom lens by {how}")
+        else:
+            _require(abs(est - k) < tol, f"lens: k1 by {how} off the truth")
+        if how == "detect" and k != 0.0:
+            _require(err < HANDHELD_TOL_CELLS,
+                     "lens: the k1 probe's corners off the truth")
+        if how == "corners" and k != 0.0:
+            _require(g > bf_auto.K1_CAL_MARGIN, "lens: gain under the margin")
+    print(f"lens game: {n_frames} frames {HANDHELD_HW[0]}p through k1 = "
+          f"{LENS_GAME_K1}, calibrated k1 {k1} (gain {gain:.4f}), seed score "
+          f"{float(score):.4f}, seed {seed_cells:.4f} cell off the truth, "
+          f"{report['good']}/{report['ref_moves']} moves right, agreement "
+          f"{report['agreement']}, tracked corners within {err_cells:.4f} "
+          f"cell of the truth (tol seed + {HANDHELD_TOL_CELLS}), from the "
+          f"true first corners within {true_cells:.4f} cell (tol "
+          f"{HANDHELD_TOL_CELLS}), no host wait in track_read_batch from the "
+          f"second batch on, launches {counts}, {lens_warps} in lens mode "
+          f"(render {t_render:.1f} s, calibrations {t_cal:.1f} s, game "
+          f"{t_run:.1f} s)", flush=True)
+    _require(abs(k1 - LENS_GAME_K1) < LENS_DETECT_TOL,
+             "lens game: k1 off the truth")
+    _require(seed_cells < HANDHELD_TOL_CELLS,
+             "lens game: the probe's seed off the truth")
+    _require(report["agreement"] == 1.0, "the lens game was misread")
+    _require(true_cells < HANDHELD_TOL_CELLS,
+             "lens game: tracked corners off the truth")
+    _require(err_cells < seed_cells + HANDHELD_TOL_CELLS,
+             "lens game: the seed's error grew while tracking")
+    _require_launched(counts, "lens")
+    _require(lens_warps > 0, "the warp kernel never ran in lens mode")
+
+    # The first frames through device="cpu", the same lens and seed.
+    t0 = time.perf_counter()
+    _, _, first_c = read_game(lens, seed0.cpu(), "cpu")
+    d_px = max(float((first_c[lo][1] - first[lo][1]).abs().max())
+               for lo in first_c)
+    same = all(torch.equal(first_c[lo][0], first[lo][0]) for lo in first_c)
+    print(f"lens game, device=\"cpu\" on the first {HANDHELD_CPU_FRAMES} "
+          f"frames: corners within {d_px:.4f} px of the card's (tol "
+          f"{TOL_CPU_PX}), labels {'equal' if same else 'DIFFER'} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    _require(d_px < TOL_CPU_PX, "lens game: card and CPU corners disagree")
+    _require(same, "lens game: card and CPU labels disagree")
+
+    # Ungated: the same game without the lens, seeded by plain detection.
+    plain_seed, _ = bf_auto.detect_corners(frame0)
+    plain_moves, plain_tracked, _ = read_game(None, plain_seed, dev)
+    plain_report = score_moves(plain_moves, moves)
+    seed_off = float(np.abs(plain_seed.cpu().numpy() - truth[0]).max())
+    print(f"lens game read WITHOUT the lens (not gated): agreement "
+          f"{plain_report['agreement']}, tracked corners within "
+          f"{float(np.abs(plain_tracked - truth).max()) / cell:.4f} cell of "
+          f"the truth, seed {seed_off / cell:.4f} cell off", flush=True)
+    return {"launches": counts, "lens_launches": lens_warps,
+            "frames": frames, "truth": truth, "stills": stills, "k1": k1,
+            "moves": moves}
+
+
+def phase_lens_multistream(lens_run: dict, dev) -> dict:
+    """The lens game's first frames seen by four cameras, each its own
+    lens (``LENS_MS_K1``), through ``multistream_track_read`` with one
+    stacked lens made once, in batches of 16 with every synchronizing call
+    an error from the second batch on: one warp launch a batch, in lens
+    mode, for every stream; each stream against the single-stream call
+    with its own lens."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.ops.lens import make_lens, stack_lenses
+    from camkifu_tpu_torch.parallel import mesh
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import (handheld_corners, render_game,
+                                                sample_moves)
+
+    t0 = time.perf_counter()
+    n = LENS_MS_FRAMES
+    fpm = cvconf.vote_window + 3
+    moves = sample_moves(-(-(n - 6) // fpm), seed=5)
+    pin = handheld_corners(6 + len(moves) * fpm, HANDHELD_HW)
+
+    def render(k):
+        if k == LENS_GAME_K1:
+            return lens_run["frames"][:n], lens_run["truth"][:n]
+        f, c = render_game(moves, fpm, frame_hw=HANDHELD_HW, seed=5,
+                           empty_leadin=6, corners=pin, workers=2,
+                           lens_k1=k, line_width=LENS_LINE_WIDTH)
+        return f[:n], c[:n]
+
+    with ThreadPoolExecutor(max_workers=len(LENS_MS_K1)) as pool:
+        out = list(pool.map(render, LENS_MS_K1))
+    frames = np.stack([f for f, _ in out])
+    truth = np.stack([c for _, c in out])
+    lenses = [make_lens(k, HANDHELD_HW) for k in LENS_MS_K1]
+    stacked = stack_lenses(lenses, dev)
+    seeds0 = torch.from_numpy(truth[:, 0]).to(dev)
+    t_render = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    states = mesh.multistream_init_states(len(lenses), device=dev)
+    seeds = seeds0
+    outs = []
+    try:
+        for lo, nb, fb in _ms_batches(frames):
+            fb = fb.to(dev)
+            torch.cuda.synchronize()
+            if lo:
+                torch.cuda.set_sync_debug_mode("error")
+            res = mesh.multistream_track_read(states, fb, seeds,
+                                              lenses=stacked)
+            torch.cuda.set_sync_debug_mode("default")
+            states, labels, seeds = res[0], res[1], res[7]
+            outs.append((labels, res[4]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    lens_warps = _lens_counts()
+    t_run = time.perf_counter() - t0
+
+    d_px, same = 0.0, True
+    for s, ln in enumerate(lenses):
+        st = sf_meta.init_state(device=dev)
+        seed = seeds0[s]
+        for (lo, nb, fb), (labels, cs) in zip(
+                _ms_batches(frames[s:s + 1]), outs):
+            st, lab, _, _, cs_s, _, _, seed = sf_meta.track_read_batch(
+                st, fb[0].to(dev), seed, lens=ln)
+            same = same and torch.equal(lab, labels[s])
+            d_px = max(d_px, float((cs_s - cs[s]).abs().max()))
+    cell = float(np.linalg.norm(truth[0, 0, 1] - truth[0, 0, 0]) / 18)
+    err_cells = max(float(np.abs(cs[:, :nb].cpu().numpy()
+                                 - truth[:, lo:lo + nb]).max()) / cell
+                    for (lo, nb, _), (_, cs) in zip(_ms_batches(frames),
+                                                    outs))
+    print(f"lens multi-stream: {len(lenses)} cameras with k1 {LENS_MS_K1} "
+          f"on {n} frames {HANDHELD_HW[0]}p through multistream_track_read"
+          f"(lenses=stack_lenses(...)), batches of {MS_BATCH}, no host wait "
+          f"from the second batch on, tracked corners within "
+          f"{err_cells:.4f} cell of the truth (tol {HANDHELD_TOL_CELLS}), "
+          f"each stream alone: labels {'equal' if same else 'DIFFER'}, "
+          f"corners within {d_px:.2e} px (tol {LENS_MS_STREAM_TOL_PX}); "
+          f"launches "
+          f"{counts}, {lens_warps} in lens mode in {len(outs)} calls (render "
+          f"{t_render:.1f} s, run {t_run:.1f} s)", flush=True)
+    _require(same, "lens multi-stream: a stream differs from its single call")
+    _require(d_px <= LENS_MS_STREAM_TOL_PX, "lens multi-stream: a "
+             "stream's corners differ from its single call")
+    _require(err_cells < HANDHELD_TOL_CELLS,
+             "lens multi-stream: tracked corners off the truth")
+    _require(counts["warp"][0] == len(outs) and lens_warps == len(outs),
+             "lens multi-stream: not one lens-mode warp a batch for every "
+             "stream")
+    return {"launches": counts, "lens_launches": lens_warps}
+
+
+def phase_lens_kernels(lens_run: dict, dev) -> list[dict]:
+    """The warp's lens mode against its plain version at the lens paths'
+    shapes: a 1080p RGB frame undistorted, the known-corner calibration's
+    513² gray rect, the tracker's canvas (16 × 1080p → 336²) with one
+    shared lens and with a lens a stream (4 streams × 16); then the edge,
+    hysteresis and Hough kernels at the calibration's res 512 (N = 2,
+    B = 1) on the undistorted 1080p frame."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board.bf_auto import _detect_prepare, \
+        resize_bilinear
+    from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
+    from camkifu_tpu_torch.ops.cuda import hough_kernel, warp_kernel
+    from camkifu_tpu_torch.ops.edges import edge_map
+    from camkifu_tpu_torch.ops.hough import topk_edge_points
+    from camkifu_tpu_torch.ops.lens import as_table, make_lens, \
+        stack_lenses, undistort_frame, undistort_pts
+    from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
+
+    frame, gt = lens_run["stills"][LENS_DETECT_K1[0]]
+    lens = make_lens(LENS_DETECT_K1[0], FRAME_HW)
+    shared = tuple(lens)
+    truth = torch.from_numpy(gt).to(dev)
+    pin = undistort_pts(lens, truth)
+    canvas = _canvas_H(pin, 19).contiguous()
+    n_s = len(LENS_MS_K1)
+    ms_lenses = [make_lens(k, FRAME_HW) for k in LENS_MS_K1]
+    table = as_table(stack_lenses(ms_lenses, dev))[:, None] \
+        .expand(n_s, C4_CHUNK, 5).reshape(-1, 5).contiguous()
+    ms_H = torch.stack([_canvas_H(undistort_pts(ln, truth), 19)
+                        for ln in ms_lenses])[:, None] \
+        .expand(n_s, C4_CHUNK, 3, 3).reshape(-1, 3, 3).contiguous()
+    one = frame[None].contiguous()
+    gray = rgb_to_gray_u8(frame)[None, :, :, None].contiguous()
+    many = frame[None].expand(C4_CHUNK, *frame.shape).contiguous()
+    shapes = (
+        ("lens undistort", one, torch.eye(3, device=dev), FRAME_HW, 1.0,
+         shared),
+        ("lens calibration rect", gray,
+         homography_dlt(canonical_corners(19, 27, dev), pin), (513, 513),
+         1.0 / 255.0, shared),
+        ("lens canvas", many, canvas, (336, 336), 1.0 / 255.0, shared),
+        ("lens multi-stream canvas",
+         many.repeat(n_s, 1, 1, 1), ms_H, (336, 336), 1.0 / 255.0, table),
+    )
+    cases = []
+    for path, x, H, hw, sc, ln in shapes:
+        H = H.contiguous()
+        err = _check_warp(x, H, hw, f" ({path})", lens=ln, scale=sc)
+        n_h = "" if H.ndim == 2 else f", {int(H.shape[0] // C4_CHUNK)} lenses"
+        cases.append(_case(
+            "warp", f"{tuple(x.shape)} u8{n_h} → {hw[0]}×{hw[1]}×"
+            f"{x.shape[-1]}, lens", path,
+            lambda x=x, H=H, hw=hw, sc=sc, ln=ln: warp_kernel.warp_homography(
+                x, H, hw, sc, ln),
+            lambda x=x, H=H, hw=hw, sc=sc, ln=ln:
+                warp_kernel.warp_homography_ref(x, H, hw, sc, ln),
+            err, bound_warp(x, hw, lens=True),
+            library=lambda x=x, H=H, hw=hw, sc=sc, ln=ln: grid_sample_case(
+                x, H, hw, sc, ln)))
+    got = undistort_frame(frame, lens)
+    _require(got.dtype == torch.uint8 and got.shape == frame.shape,
+             "undistort_frame: wrong output")
+
+    # Stage 1 of a k1 probe: res 512 on the undistorted frame.
+    f0 = got
+    small = resize_bilinear(rgb_to_gray_u8(f0).float() / 255.0, (512, 512))
+    chroma = resize_bilinear((f0[..., 0].float() - f0[..., 2].float())
+                             / 255.0, (512, 512))
+    x = torch.stack([small, chroma]).contiguous()
+    cases += _edge_cases(x, "lens calibration", " at res 512")
+    pts, wts = topk_edge_points(edge_map(small))
+    rho_max = float(np.hypot(512, 512))
+    cases.append(_case(
+        "hough", f"B = 1, K = {pts.shape[-2]} → 128 × 256, res 512",
+        "lens calibration",
+        lambda: hough_kernel.hough_accumulate(pts, wts, rho_max, 128, 256),
+        lambda: hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128,
+                                                  256),
+        _check_hough(pts, wts, rho_max, " at res 512"),
+        bound_hough(pts, wts)))
+    _, _, score = _detect_prepare(f0, 512)
+    _require(float(score) > 0.5, "lens: stage 1 at res 512 found no board")
+    return cases
+
+
+def phase_lens_times(lens_run: dict, card: str) -> dict:
+    """c4's shape through the lens, 128 × 1080p at chunk 16: the lens
+    board drifting ±3 px over 8 renders, tiled. One call checked against
+    the truth, then CUDA-event times of ``track_read_batch`` with the lens
+    and without it on the same frames, in turns, and of both calibrators
+    at 1080p."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops.lens import make_lens
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import default_corners, render_still
+
+    frame0, gt0 = lens_run["stills"][LENS_GAME_K1]
+    dev = frame0.device
+    labels = _lens_labels()
+    base = default_corners(FRAME_HW)
+
+    def render(i):
+        c = base + np.array([REDETECT_DRIFT * np.sin(i / 2.0),
+                             REDETECT_DRIFT * np.cos(i / 3.0)], np.float32)
+        return render_still(labels, frame_hw=FRAME_HW, seed=i, corners=c,
+                            lens_k1=LENS_GAME_K1, line_width=LENS_LINE_WIDTH)
+
+    with ThreadPoolExecutor(max_workers=REDETECT_RENDERS) as pool:
+        out = list(pool.map(render, range(REDETECT_RENDERS)))
+    reps = C4_BATCH // REDETECT_RENDERS
+    frames = torch.stack([torch.from_numpy(f).to(dev) for f, _ in out]
+                         * reps)
+    truth = np.stack([c for _, c in out] * reps)
+    lens = make_lens(LENS_GAME_K1, FRAME_HW)
+    state0 = sf_meta.init_state(device=dev)
+    seed = torch.from_numpy(truth[0]).to(dev)
+    res = sf_meta.track_read_batch(state0, frames, seed, chunk=C4_CHUNK,
+                                   lens=lens)
+    torch.cuda.synchronize()
+    cell = float(np.linalg.norm(truth[0][1] - truth[0][0]) / 18)
+    err_cells = float(np.abs(res[4].cpu().numpy() - truth).max()) / cell
+    read = torch.equal(res[1][-1].cpu(), torch.from_numpy(labels))
+    print(f"c4's shape through the lens: {tuple(frames.shape)}, k1 "
+          f"{LENS_GAME_K1}, tracked corners within {err_cells:.4f} cell of "
+          f"the truth (tol {HANDHELD_TOL_CELLS}), board "
+          f"{'read' if read else 'MISREAD'}", flush=True)
+    _require(err_cells < HANDHELD_TOL_CELLS,
+             "c4 through the lens: tracked corners off the truth")
+    _require(read, "c4 through the lens: the board was misread")
+
+    def track(ln):
+        return lambda: sf_meta.track_read_batch(state0, frames, seed,
+                                                chunk=C4_CHUNK, lens=ln)
+
+    runs = {"track_read no lens": _cuda_ms_runs(track(None), reps=10),
+            "track_read lens": _cuda_ms_runs(track(lens), reps=10)}
+    runs["track_read lens"] += _cuda_ms_runs(track(lens), reps=10)
+    runs["track_read no lens"] += _cuda_ms_runs(track(None), reps=10)
+    runs = {k: sorted(v) for k, v in runs.items()}
+    runs["estimate_lens_k1"] = _cuda_ms_runs(
+        lambda: bf_auto.estimate_lens_k1(frame0), reps=5, warmup=1)
+    runs["estimate_lens_k1_corners"] = _cuda_ms_runs(
+        lambda: bf_auto.estimate_lens_k1_corners(frame0, gt0), reps=5,
+        warmup=1)
+    med = {k: _median(v) for k, v in runs.items()}
+    print(f"times on {card}, median [min, max] (20 calls, in turns no lens /"
+          f" lens / lens / no lens, for track_read_batch at {C4_BATCH} x "
+          f"{FRAME_HW[0]}p; 5 for the calibrators at {FRAME_HW[0]}p): "
+          + ", ".join(f"{k} {med[k]:.3f} ms [{v[0]:.3f}, {v[-1]:.3f}]"
+                      for k, v in runs.items())
+          + f"; lens / no lens "
+          f"{med['track_read lens'] / med['track_read no lens']:.3f}",
+          flush=True)
+    return {"ms": med}
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -1832,8 +2360,24 @@ def run_phases(dev, card: str) -> dict:
           flush=True)
     cases += [_numbers_only(c) for c in new_cases]
     del new_cases
-    return {"kernels": [_kernel_entry(name, source, replaces, cases, paths)
-                        for name, (source, replaces) in SOURCES.items()],
+    t0 = time.perf_counter()
+    lens_run = phase_lens(dev)
+    lens_ms = phase_lens_multistream(lens_run, dev)
+    lens_cases = phase_lens_kernels(lens_run, dev)
+    tl = phase_lens_times(lens_run, card)
+    paths["lens"], paths["lens multi-stream"] = (lens_run["launches"],
+                                                 lens_ms["launches"])
+    lens_warps = {"lens": lens_run["lens_launches"],
+                  "lens multi-stream": lens_ms["lens_launches"]}
+    del lens_run
+    phase_kernel_times(lens_cases, card)
+    cases += [_numbers_only(c) for c in lens_cases]
+    del lens_cases
+    print(f"lens phase {time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = [_kernel_entry(name, source, replaces, cases, paths)
+               for name, (source, replaces) in SOURCES.items()]
+    kernels[0]["lens_launches_per_path"] = lens_warps
+    return {"kernels": kernels,
             "summary": {"c1_ms": t["c1_ms"],
                         "c2_fps": BATCH / t["c2_ms"] * 1e3,
                         "c3_fps": tf["fps"]["c3"],
@@ -1849,7 +2393,13 @@ def run_phases(dev, card: str) -> dict:
                            for g in SIZES},
                         "infer_gsize_ms": sizes["ms"]["infer_gsize"],
                         "c5_fps": c5_fps,
-                        "multistream_track_fps": tm["fps"]}}
+                        "multistream_track_fps": tm["fps"],
+                        "c4_track_read_lens_ms": tl["ms"]["track_read lens"],
+                        "c4_track_read_no_lens_ms":
+                            tl["ms"]["track_read no lens"],
+                        "estimate_lens_k1_ms": tl["ms"]["estimate_lens_k1"],
+                        "estimate_lens_k1_corners_ms":
+                            tl["ms"]["estimate_lens_k1_corners"]}}
 
 
 def main() -> int:

@@ -296,7 +296,7 @@ def test_state_surgery_matches_jax():
 def test_read_batch_refuses_what_is_not_ported():
     state = sf_meta.init_state(device="cpu")
     frames = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(TypeError, match="Lens"):
         sf_meta.read_batch(state, frames, torch.zeros((4, 2)), lens=object())
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         sf_meta.read_batch(state, frames, torch.zeros((4, 2)),

@@ -573,3 +573,116 @@ def test_multistream_track_read_on_the_card_never_waits():
         one = sf_meta.track_read_batch(sf_meta.init_state(), fb[s], sd[s])
         assert torch.equal(one[1], out[1][s])
         assert float((one[4] - out[4][s]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("case", ["undistort 1080p", "rect 513 gray",
+                                  "canvas shared", "canvas a lens a frame"])
+def test_warp_kernel_lens_mode_bitwise_equal_to_plain(case):
+    """The warp's lens mode at the lens paths' shapes: a 1080p frame
+    undistorted (identity homography), the known-corner calibration's 513²
+    gray rect, the tracker's 336² canvas with one shared lens and with a
+    lens a frame (two streams of 4 frames, k1 = 0.06 and −0.04): bitwise
+    equal to the plain version, one launch each."""
+    from camkifu_tpu_torch.ops import lens as L
+
+    dev = _device()
+    hw = (1080, 1920)
+    lens = L.make_lens(0.06, hw)
+    corners = torch.from_numpy(default_corners(hw)).to(dev)
+    if case == "undistort 1080p":
+        frames = _frames(dev, 1, hw)
+        H, out_hw = torch.eye(3, device=dev), hw
+    elif case == "rect 513 gray":
+        frames = _frames(dev, 1, hw)[..., 1:2].contiguous()
+        H = homography_dlt(canonical_corners(19, 27, dev),
+                           L.undistort_pts(lens, corners))
+        out_hw = (513, 513)
+    else:
+        frames = _frames(dev, 8, hw)
+        H = homography_dlt(square(23.5, 311.5, dev),
+                           L.undistort_pts(lens, corners))
+        out_hw = (336, 336)
+        if case == "canvas a lens a frame":
+            two = L.stack_lenses([lens, L.make_lens(-0.04, hw)], dev)
+            lens = L.as_table(two)[:, None].expand(2, 4, 5).reshape(8, 5) \
+                .contiguous()
+    H = H.contiguous()
+    args = (frames, H, out_hw, 1 / 255,
+            lens if isinstance(lens, torch.Tensor) else tuple(lens))
+    before = warp_kernel.launches
+    ours = warp_kernel.warp_homography(*args)
+    assert warp_kernel.launches == before + 1
+    ref = warp_kernel.warp_homography_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, ref)
+    if case == "undistort 1080p":
+        got = L.undistort_frame(frames[0], L.make_lens(0.06, hw))
+        want = torch.clamp(ref[0] * 255 + 0.5, 0, 255).to(torch.uint8)
+        assert got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+    # The lens moves the samples: the lens-free warp reads other values.
+    plain = warp_kernel.warp_homography(frames, H, out_hw, 1 / 255)
+    assert not torch.equal(plain, ours)
+    assert torch.equal(plain, warp_kernel.warp_homography_ref(
+        frames, H, out_hw, 1 / 255))
+
+
+def test_lens_track_read_batch_on_the_card_never_waits():
+    """A drifting 720p board through a k1 = 0.06 lens: ``track_read_batch``
+    with the lens on the card agrees with ``device="cpu"`` (corners within
+    0.5 px, labels equal), lands within 0.15 cell of the truth, launches
+    the warp once a chunk, and a warm call with every synchronizing call
+    an error has none."""
+    from camkifu_tpu_torch.ops import lens as L
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import handheld_corners
+
+    dev = _device()
+    hw = (720, 1280)
+    labels = np.zeros((19, 19), np.int8)
+    labels[3, 3] = 1
+    labels[15, 15] = 2
+    pin = handheld_corners(16, hw)
+    out = [render_still(labels, hw, seed=t, corners=c, lens_k1=0.06)
+           for t, c in enumerate(pin)]
+    frames = np.stack([f for f, _ in out])
+    truth = np.stack([c for _, c in out])
+    lens = L.make_lens(0.06, hw)
+    fb, seed = torch.from_numpy(frames), torch.from_numpy(truth[0])
+    out_c = sf_meta.track_read_batch(sf_meta.init_state(device="cpu"), fb,
+                                     seed, lens=lens)
+    state0 = sf_meta.init_state()
+    fb_d, seed_d = fb.to(dev), seed.to(dev)
+    before = warp_kernel.launches
+    out_d = sf_meta.track_read_batch(state0, fb_d, seed_d, lens=lens)
+    assert warp_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sf_meta.track_read_batch(state0, fb_d, seed_d, lens=lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(again[1], out_d[1])
+    assert torch.equal(out_d[1].cpu(), out_c[1])
+    assert float((out_d[4].cpu() - out_c[4]).abs().max()) < 0.5
+    cell = float(np.linalg.norm(truth[0][1] - truth[0][0]) / 18)
+    assert np.abs(out_d[4].cpu().numpy() - truth).max() < 0.15 * cell
+
+
+def test_one_camera_and_a_stacked_lens_take_the_same_bits_on_the_card():
+    """On the card a lens of Python numbers goes through tensors (the card
+    divides by a Python number through its reciprocal): a camera's points
+    distorted and undistorted alone equal its row of a stacked lens, bit
+    for bit, as the stream tracker needs."""
+    from camkifu_tpu_torch.ops import lens as L
+
+    dev = _device()
+    hw = (720, 1280)
+    rng = np.random.default_rng(3)
+    pts = torch.from_numpy(rng.uniform([0, 0], [1280, 720], (2, 64, 2))
+                           .astype(np.float32)).to(dev)
+    one = L.make_lens(0.06, hw)
+    both = L.stack_lenses([one, L.make_lens(-0.04, hw)], dev)
+    for fn in (L.distort_pts, L.undistort_pts):
+        assert torch.equal(fn(one, pts[0]), fn(both, pts)[0])

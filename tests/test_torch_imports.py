@@ -26,6 +26,7 @@ MODULES = [
     "camkifu_tpu_torch.board.bf_auto",
     "camkifu_tpu_torch.ops.background",
     "camkifu_tpu_torch.ops.hough",
+    "camkifu_tpu_torch.ops.lens",
     "camkifu_tpu_torch.ops.warp",
     "camkifu_tpu_torch.ops.zones",
     "camkifu_tpu_torch.stone.sf_clustering",

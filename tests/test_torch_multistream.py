@@ -258,6 +258,6 @@ def test_multistream_init_states():
 def test_multistream_track_read_refuses_a_lens():
     frames = torch.zeros((2, 2, 32, 32, 3), dtype=torch.uint8)
     st = mesh.multistream_init_states(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(TypeError, match="Lens"):
         mesh.multistream_track_read(st, frames, torch.zeros((2, 4, 2)),
                                     lenses=object())

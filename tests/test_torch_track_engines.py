@@ -255,6 +255,8 @@ def test_read_board_batch_with_per_frame_corners_matches_jax():
                                    "rectify_track_batch", "track_read_batch",
                                    "read_batch", "read_board_batch"])
 def test_entry_points_refuse_a_lens(entry):
+    """A ``lens`` that is not an ``ops.lens.Lens`` raises TypeError (the
+    lens model is in tests/test_torch_lens*.py)."""
     frames = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
     seed = torch.zeros((4, 2))
     state = sf_meta.init_state(device="cpu")
@@ -270,7 +272,7 @@ def test_entry_points_refuse_a_lens(entry):
         "read_board_batch": lambda: pipeline.read_board_batch(
             frames, seed, lens=object()),
     }
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(TypeError, match="Lens"):
         calls[entry]()
 
 
