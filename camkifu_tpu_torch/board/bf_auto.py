@@ -1856,3 +1856,292 @@ def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
     return (torch.cat(out_canon, 1)[:, :b], torch.cat(out_cs, 1)[:, :b],
             torch.cat(out_sharp, 1)[:, :b], torch.cat(out_align, 1)[:, :b],
             seed)
+
+
+# ---------------------------------------------------------------------------
+# Host finder class (the cvconf-registered algorithm; SURVEY §2.1 bf_auto),
+# copied from camkifu_tpu/board/bf_auto.py. Its trip-wires, EMA and bump
+# rules are the reference's numpy float32 arithmetic, line for line; the
+# device calls are this module's, and the host reads what it needs of a
+# batch in one ``core.feeder.host_read``.
+# ---------------------------------------------------------------------------
+
+from camkifu_tpu_torch.board.boardfinder import BoardFinder  # noqa: E402
+from camkifu_tpu_torch.core.feeder import host_read, to_device  # noqa: E402
+
+
+class BoardFinderAuto(BoardFinder):
+    """Automatic goban localization with temporal stabilization: per-batch
+    detections accumulate into an EMA once confident; isolated outlier
+    detections are rejected (the reference's accumulate-until-stable).
+
+    Once a confident detection exists, every batch is additionally TRACKED
+    (track_corners_batch): per-frame corners are measured from each frame's
+    own pixels and published through ``corners_batch`` for stones finders
+    that accept them; full detection re-runs at bf_period cadence (and
+    immediately when tracking sharpness collapses) to re-anchor against
+    rotation/scale drift the translation tracker does not model.
+
+    ``frames`` are the manager's (B, H, W, 3) uint8 tensor on the device.
+    ``track_seed`` lives there too; ``corners_batch``, ``_estimate``,
+    ``_prev_tracked_last`` and ``_align_anchor`` are host values.
+    """
+
+    label = "automatic"
+
+    def __init__(self, vmanager):
+        super().__init__(vmanager)
+        self._estimate: np.ndarray | None = None
+        self.track_seed = None             # device (4, 2), batch-fresh
+        #: Radial lens model (ops/lens.py), calibrated once at the first
+        #: successful anchor — a physical property of the camera, so it
+        #: never re-estimates mid-session. None = pinhole. Stones finders
+        #: read it (getattr(bf, "lens", None)) and compose it into their
+        #: warps; corners everywhere stay raw frame coordinates.
+        self.lens = None
+        self._lens_checked = False
+        self._align_anchor: float | None = None  # align at last re-anchor
+        self._prev_tracked_last: np.ndarray | None = None  # (4, 2) continuity
+        #: True while this batch's tracking hit a discontinuity (jump trip):
+        #: stones finders must not trust readings made with these corners.
+        self.suspect_batch = False
+        #: True while this batch adopted a fresh full detection (first
+        #: anchor, bf_period re-anchor, or post-trip recovery). Stones
+        #: finders that know the committed game cross-check the new pose
+        #: against it (SfMeta pose veto) and may reject_anchor().
+        self.fresh_anchor = False
+
+    def _doframe(self, frames, n: int | None = None) -> None:
+        self.suspect_batch = False
+        super()._doframe(frames, n)        # periodic _detect + publish
+        self.fresh_anchor = self._since_detect == 0
+        if not self.ready():
+            self.corners_batch = None
+            self.track_seed = None
+            return
+        if self.track_seed is not None and self._since_detect == 0:
+            # A fresh full detection just ran. Rotation/scale drift is
+            # invisible to translation tracking, so ALWAYS pull the seed
+            # toward the detection: a blend bounds the held drift to ~one
+            # detection cadence while halving detection's own corner noise;
+            # a jump beyond a cell is a camera bump — hard re-anchor.
+            est = np.asarray(self.corners_array, np.float32)
+            seed_np, = host_read(self.track_seed)
+            cell = np.linalg.norm(est[1] - est[0]) / (self.gsize - 1)
+            if np.abs(seed_np - est).max() > 1.0 * cell:
+                self.track_seed = None
+            else:
+                self.track_seed = to_device(
+                    np.asarray(0.5 * seed_np + 0.5 * est, np.float32),
+                    frames.device)
+            # A fresh anchor resets the alignment baseline and the
+            # frame-to-frame continuity reference (a legitimate re-anchor
+            # step must not read as a discontinuity).
+            self._align_anchor = None
+            self._prev_tracked_last = None
+        if self.track_seed is None:
+            self.track_seed = to_device(
+                np.asarray(self.corners_array, np.float32), frames.device)
+            self._align_anchor = None
+            self._prev_tracked_last = None
+        sf = getattr(self.vmanager, "stones_finder", None)
+        if getattr(sf, "fused_tracking", False):
+            # The stones finder tracks inside its fused rectify+classify
+            # pass and reports back through report_tracking.
+            return
+        cs, sharp, align, new_seed = track_corners_batch(
+            frames, self.track_seed, gsize=self.gsize, lens=self.lens)
+        cs, sharp, align = host_read(cs, sharp, align)
+        self.report_tracking(cs, new_seed, float(sharp.mean()),
+                             self.batch_align(align, sharp))
+
+    @staticmethod
+    def batch_align(align, sharp) -> float:
+        """Batch lattice-alignment summary: mean over the frames whose
+        correlation was sharp (occluded/blurred frames report held offsets —
+        their align says nothing about geometric drift)."""
+        align = np.asarray(align)
+        good = np.asarray(sharp) >= TRACK_MIN_SHARPNESS
+        return float(align[good].mean() if good.any() else align.mean())
+
+    def report_tracking(self, corners_batch: np.ndarray, new_seed,
+                        mean_sharp: float,
+                        mean_align: float | None = None) -> None:
+        """Adopt a batch's per-frame tracking result (own or the fused
+        stones-finder pass). Three independent trip-wires force a full
+        re-detection on the next batch:
+
+        - sharpness collapse — tracking lost outright (bump, occlusion);
+        - lattice-alignment decay vs the baseline recorded at the last
+          re-anchor — slow model-mismatch drift (out-of-plane perspective
+          change) that stays correlation-sharp because the reference EMA
+          adapts along with it (the r2 rotation probe's failure mode).
+          The baseline is a running MAX since the last re-anchor — never
+          EMA-adapted, so arbitrarily slow decay still trips, but a later
+          cleaner batch can raise a pin depressed by a partially occluded
+          first batch (which would otherwise put the trip threshold out of
+          reach of real drift);
+        - frame-to-frame discontinuity (TRACK_JUMP_TRIP) — a camera bump.
+          Neither other wire can see it: after a knock the correlation
+          locks onto a whole-cell-shifted alias of the periodic lattice
+          that is both sharp and well-aligned, silently relocating every
+          stone. A step this large is also beyond the correlation window,
+          so the tracked batch is untrustworthy by construction — drop it
+          and flag it suspect so stones finders discard the batch too.
+        """
+        cb = np.asarray(corners_batch)
+        seq = cb if self._prev_tracked_last is None else \
+            np.concatenate([self._prev_tracked_last[None], cb])
+        steps = np.linalg.norm(np.diff(seq, axis=0), axis=-1)      # (S-1, 4)
+        cell = np.linalg.norm(cb[-1, 1] - cb[-1, 0]) / (self.gsize - 1)
+        max_step = float(steps.max()) if steps.size else 0.0
+        self.metadata["track_step"] = round(max_step, 2)
+        jump = cell > 1.0 and max_step > TRACK_JUMP_TRIP * cell
+        if jump:
+            # A discontinuity is a LEVEL SHIFT, not a spike: after a real
+            # bump the lattice stays at the new position, while a 1–2-frame
+            # measurement excursion (deep AE dip + shot noise + glare on a
+            # dark board — the r4 gauntlet's combination, which stays just
+            # above the sharpness gate) returns home. Trip only when the
+            # median of the following frames remains displaced from the
+            # pre-jump pose; a confirmed spike is absorbed (votes already
+            # smooth the one misaligned reading). A jump too close to the
+            # batch tail to verify defers: the continuity reference stays
+            # at the pre-jump pose, so the next batch re-evaluates it with
+            # full evidence.
+            j = int(np.argmax(
+                (np.max(steps, axis=-1) > TRACK_JUMP_TRIP * cell)))
+            after = seq[j + 2:j + 6]
+            if len(after) >= 2:
+                disp = np.linalg.norm(np.median(after, axis=0) - seq[j],
+                                      axis=-1).max()
+                if disp <= TRACK_JUMP_TRIP * cell:
+                    jump = False                      # spike: absorbed
+                    self._prev_tracked_last = cb[-1]
+                    self.metadata["track_spike"] = round(max_step, 2)
+            else:
+                jump = False                          # defer to next batch
+                self._prev_tracked_last = seq[j]
+            if not jump:
+                self.corners_batch = corners_batch
+                self.track_seed = new_seed
+                self.metadata["track_sharpness"] = round(mean_sharp, 2)
+                return
+        if jump:
+            self._since_detect = 10 ** 9      # force re-detect next batch
+            self.track_seed = None
+            self.corners_batch = None
+            self._align_anchor = None
+            self._prev_tracked_last = None
+            # The pose history is the thing the trip disproved: the next
+            # detection must re-anchor FRESH, not EMA-blend into the
+            # pre-bump estimate (measured: a 1-cell knock below _detect's
+            # hard-reset threshold crawled at 0.8^k toward the new pose,
+            # re-seeding every re-anchor ~0.5 cell stale and pinning the
+            # tracker at sharpness ~1.6 for the rest of the game).
+            self._estimate = None
+            self.suspect_batch = True
+            self.metadata["track_trip"] = "jump"
+            sf = getattr(self.vmanager, "stones_finder", None)
+            if sf is not None:
+                sf.on_tracking_discontinuity()
+            return
+        self._prev_tracked_last = cb[-1]
+        self.corners_batch = corners_batch
+        self.track_seed = new_seed
+        self.metadata["track_sharpness"] = round(mean_sharp, 2)
+        if mean_align is not None:
+            self.metadata["track_align"] = round(mean_align, 3)
+            if self._align_anchor is None or mean_align > self._align_anchor:
+                self._align_anchor = mean_align
+            elif (self._align_anchor > 0.02
+                  and mean_align < TRACK_ALIGN_TRIP * self._align_anchor):
+                self._since_detect = 10 ** 9      # force re-detect next batch
+                self._estimate = None     # re-anchor fresh (see jump trip)
+        if mean_sharp < TRACK_MIN_SHARPNESS:
+            self._since_detect = 10 ** 9
+            self.track_seed = None
+            self.corners_batch = None
+            self._align_anchor = None
+            self._prev_tracked_last = None
+            self._estimate = None         # re-anchor fresh (see jump trip)
+
+    def reject_anchor(self) -> None:
+        """A stones finder vetoed the freshly adopted pose (its readings
+        wholesale contradict the committed game — SfMeta pose veto): the
+        detection was confidently wrong, which full detection CAN be on
+        stone-saturated boards rotated ≥~14° in-plane (measured: 3–8 cells
+        off at score 0.27–0.35; the 1D combs cannot represent that basin
+        and the 2D evidence prior picks a shrunk impostor). Drop the pose
+        and every derived state; detection re-runs each batch until a pose
+        consistent with the game appears. The alternative — accepting the
+        pose — lets bulk self-correction rewrite the entire kifu onto the
+        impostor lattice (the pre-trip-wire bump disaster, resurrected
+        through the recovery path itself)."""
+        self._since_detect = 10 ** 9
+        self.track_seed = None
+        self.corners_batch = None
+        self._align_anchor = None
+        self._prev_tracked_last = None
+        self._estimate = None             # the pose history is disproved
+        self.fresh_anchor = False
+        self.suspect_batch = True
+        # Unpublish: a vetoed pose must not serve the classic fixed-corner
+        # path (or the GUI overlay) while re-anchoring.
+        self.corners.clear()
+        self.mtx = None
+        self.metadata["track_trip"] = "pose_veto"
+
+    def _detect(self, frames) -> bool:
+        # Detection costs tens of ms a frame — sample up to 4 frames of the
+        # batch for the median rather than detecting on all of them.
+        b = frames.shape[0]
+        step = max(1, b // 4)
+        sample = frames[::step][:4]
+        if self.lens is not None:
+            # Straight-line detection on pinhole-resampled frames; the
+            # per-frame results are bent back to raw coordinates below.
+            sample = _undistort_batch(sample, self.lens)
+        corners_all, scores = detect_batch(sample, gsize=self.gsize)
+        if self.lens is not None:
+            corners_all = distort_pts(self.lens, corners_all)
+        # The median of an even count averages the two middle values, as
+        # jnp.median does (torch.median would return the lower one); NaN
+        # propagates to the isfinite check.
+        det, scores = host_read(torch.quantile(corners_all, 0.5, dim=0),
+                                scores)
+        if not np.isfinite(det).all() or scores.max() < 0.1:
+            return False
+        if not self._lens_checked:
+            # First successful board sighting: calibrate the (fixed,
+            # physical) lens once, and re-run this batch's detection if a
+            # lens was found — the pinhole detection that just succeeded
+            # is up to ~1.25 cells off at webcam-typical k1.
+            k1, gain = estimate_lens_k1(sample[len(sample) // 2],
+                                        gsize=self.gsize)
+            self._lens_checked = True
+            self.metadata["lens_k1"] = k1
+            if k1 != 0.0:
+                h, w = frames.shape[1], frames.shape[2]
+                self.lens = make_lens(k1, (h, w))
+                return self._detect(frames)
+        if self._estimate is None:
+            self._estimate = det
+        else:
+            jump = np.abs(det - self._estimate).max()
+            cell = np.linalg.norm(self._estimate[1] - self._estimate[0]) \
+                / (self.gsize - 1)
+            if jump > 1.0 * cell:
+                # Camera bump: restart accumulation from the new detection.
+                # Detection corner noise measures ≤0.3 cell — a detection a
+                # full cell away from the estimate is a moved camera, and
+                # EMA-blending it would publish a pose between the two
+                # (measured: a 1.05-cell knock crawled at 0.8^k for 5+
+                # batches, each published pose wrong by ~0.5 cell).
+                self._estimate = det
+            else:
+                self._estimate = 0.8 * self._estimate + 0.2 * det
+        self.corners.clear()
+        for p in self._estimate:
+            self.corners.add(p)
+        return self.corners.ready()

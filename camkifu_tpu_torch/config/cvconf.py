@@ -1,9 +1,9 @@
 """Vision constants the port reads, copied from camkifu_tpu/config/cvconf.py.
 
-Only the constants and the ``VisionConfig`` dataclass are copied: the
-``bfinders`` / ``sfinders`` registries name the JAX package's finder
-classes and have no counterpart here. ``tests/test_torch_host_copies.py``
-holds every value to the reference.
+The constants, the ``VisionConfig`` dataclass and the finder registries
+(``bfinders`` / ``sfinders``, the port's classes in the reference's order,
+without the finders not ported yet: ``SfBgSub`` and ``SfNeural``).
+``tests/test_torch_host_copies.py`` holds every value to the reference.
 """
 
 from __future__ import annotations
@@ -72,3 +72,25 @@ class VisionConfig:
 
 
 DEFAULT = VisionConfig()
+
+
+# ---------------------------------------------------------------------------
+# Algorithm registries (populated lazily to avoid import cycles; finders import
+# this module for constants). First entry of each list = default in the GUI,
+# mirroring the reference's convention.
+# ---------------------------------------------------------------------------
+
+def bfinders():
+    from camkifu_tpu_torch.board.bf_auto import BoardFinderAuto
+    from camkifu_tpu_torch.board.bf_manual import BoardFinderManual
+
+    return [BoardFinderAuto, BoardFinderManual]
+
+
+def sfinders():
+    from camkifu_tpu_torch.stone.sf_clustering import SfClustering
+    from camkifu_tpu_torch.stone.sf_contours import SfContours
+    from camkifu_tpu_torch.stone.sf_meta import SfMeta
+    from camkifu_tpu_torch.stone.sf_tuto import SfTuto
+
+    return [SfMeta, SfClustering, SfContours, SfTuto]

@@ -10,6 +10,11 @@ camkifu_tpu/filecheck.py, with the SfMeta vote scan and no neural voter).
 Batching and move extraction are the reference's host code, copied into
 the port (``batched`` here, ``core.gamesync.MoveExtractor``). Reading a video file needs cv2, so the
 port takes frames from any iterator of (H, W, 3) uint8 arrays.
+
+``run_runtime`` drives the full vision runtime instead: ``VManagerSeq``
+with ``BoardFinderAuto`` (detection, per-frame tracking, trip-wires, lens
+calibration at the first anchor) and ``SfMeta`` (fused tracking and votes,
+pose veto, bulk self-correction) over in-memory frames.
 """
 
 from __future__ import annotations
@@ -77,3 +82,34 @@ def run_pipeline(frames_iter, corners: np.ndarray | None = None,
                        "fps": n_frames / dt if dt > 0 else 0.0,
                        "corners": (None if corners_dev is None else
                                    corners_dev.cpu().numpy().tolist())}
+
+
+def run_runtime(frames, batch: int = 16, gsize: int = guiconf.gsize,
+                device="cuda"):
+    """Drive the FULL vision runtime — VManagerSeq hosting BoardFinderAuto
+    (per-frame 4-DoF corner tracking, trip-wires, forced re-detection) and
+    SfMeta (temporal votes, pending-capture filter, bulk self-correction) —
+    over in-memory frames on ``device`` (the card unless the caller asks
+    for the CPU); return (detected_moves, stats).
+
+    This is the moving-camera path that the fixed-corner pipeline
+    (run_pipeline) cannot represent: corners are re-measured every frame
+    and the finder hosts react to trips.
+    """
+    from camkifu_tpu_torch.board.bf_auto import BoardFinderAuto
+    from camkifu_tpu_torch.core.capture import ArrayCapture
+    from camkifu_tpu_torch.core.controllerv import ControllerVSeq
+    from camkifu_tpu_torch.core.vmanager import VManagerSeq
+    from camkifu_tpu_torch.stone.sf_meta import SfMeta
+
+    controller = ControllerVSeq(gsize=gsize)
+    vm = VManagerSeq(controller, video=None, bf_class=BoardFinderAuto,
+                     sf_class=SfMeta, batch=batch, device=device)
+    vm.capture = ArrayCapture(frames)
+    vm.instantiate_finders()
+    t0 = time.perf_counter()
+    vm.run()
+    dt = time.perf_counter() - t0
+    n = len(frames)
+    return controller.kifu.moves(), {
+        "frames": n, "seconds": dt, "fps": n / dt if dt > 0 else 0.0}

@@ -85,3 +85,28 @@ def classify_canonical(canonical: torch.Tensor, gsize: int = guiconf.gsize,
                        zone: int = cvconf.zone_size):
     """Canonical image(s) (..., S, S, 3) in [0, 1] → (labels, confidence)."""
     return classify_stats(zone_stats(canonical, gsize, zone))
+
+
+# ---------------------------------------------------------------------------
+# Host finder class (cvconf-registered; SURVEY §2.1 sf_clustering), copied
+# from camkifu_tpu/stone/sf_clustering.py.
+# ---------------------------------------------------------------------------
+
+import numpy as np  # noqa: E402
+
+from camkifu_tpu_torch.core.feeder import to_device  # noqa: E402
+from camkifu_tpu_torch.stone.stonesfinder import StonesFinder as _SF  # noqa: E402
+
+
+class SfClustering(_SF):
+    """Whole-board k-means finder host: per-frame classification, no
+    temporal state (the meta finder adds votes)."""
+
+    label = "clustering"
+
+    def _find(self, frames, corners):
+        from camkifu_tpu_torch import pipeline
+
+        return pipeline.read_board_batch(
+            frames, to_device(np.asarray(corners, np.float32), frames.device),
+            gsize=self.gsize, lens=self._bf_lens())

@@ -76,3 +76,37 @@ def classify_stats(stats: dict, zone: int = cvconf.zone_size):
     conf_empty = torch.clamp(1.0 - disc_fill / MIN_DISC_FILL, 0, 1)
     conf = torch.where(is_stone, conf_stone, conf_empty)
     return labels, conf
+
+
+# ---------------------------------------------------------------------------
+# Host finder class (cvconf-registered; SURVEY §2.1 sf_contours), copied
+# from camkifu_tpu/stone/sf_contours.py.
+# ---------------------------------------------------------------------------
+
+import numpy as np  # noqa: E402
+
+from camkifu_tpu_torch.core.feeder import to_device  # noqa: E402
+from camkifu_tpu_torch.ops.warp import warp_batch_chunked, \
+    warp_batch_fixed  # noqa: E402
+from camkifu_tpu_torch.stone.stonesfinder import StonesFinder as _SF  # noqa: E402
+
+
+def _read_batch_contours(fb: torch.Tensor, cs: torch.Tensor,
+                         gsize: int = guiconf.gsize, lens=None):
+    """Frames (B, H, W, 3) through (4, 2) fixed or (B, 4, 2) per-frame
+    corners to the disc-test reading → (labels (B, g, g) int8, conf)."""
+    scale = 1.0 / 255.0 if fb.dtype == torch.uint8 else 1.0
+    warp = warp_batch_chunked if cs.ndim == 3 else warp_batch_fixed
+    canon = warp(fb, cs.to(torch.float32), gsize, scale=scale, lens=lens)
+    return classify_canonical(canon, gsize)
+
+
+class SfContours(_SF):
+    """Contour-equivalent finder host: per-frame disc-test classification."""
+
+    label = "contours"
+
+    def _find(self, frames, corners):
+        return _read_batch_contours(
+            frames, to_device(np.asarray(corners, np.float32), frames.device),
+            gsize=self.gsize, lens=self._bf_lens())

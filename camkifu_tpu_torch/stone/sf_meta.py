@@ -1,6 +1,7 @@
-"""SfMeta's device half (port of camkifu_tpu/stone/sf_meta.py): contours
-and clustering readings, per-region trust, motion gating and the temporal
-vote scan over a batch of frames.
+"""SfMeta (port of camkifu_tpu/stone/sf_meta.py): contours and clustering
+readings, per-region trust, motion gating and the temporal vote scan over
+a batch of frames, and the host finder class that carries the scan state
+across batches (the pose veto, SGF resume, vote invalidation).
 
 The classifiers and the motion gate are stateless per frame and run on the
 whole batch at once. Only the carry (votes, stable board, background,
@@ -12,6 +13,7 @@ never waits for the device.
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +35,23 @@ TRUST_PROMOTE = 0.9
 
 #: Background downsample factor (canonical → bg grid).
 BG_FACTOR = 4
+
+#: Pose veto (SfMeta._pose_vetoed): minimum committed stones for the check
+#: to be meaningful, and the minimum fraction of them a freshly anchored
+#: pose's readings must reproduce. A correct anchor reads ≥~0.9 of the
+#: committed stones even under capture lag / a hand in frame. An impostor
+#: pose does NOT read them at ~⅓ chance: Go colors cluster spatially, so
+#: on a saturated board a lattice several cells off still agrees on the
+#: interior of every large group (measured in the reference: 0.69
+#: agreement at 5 cells off, 200 stones, 17° camera) — only the group
+#: boundaries scramble. 0.8 sits between the measured impostor ceiling and
+#: the correct-anchor floor.
+POSE_VETO_MIN_STONES = 15
+POSE_VETO_MIN_AGREE = 0.8
+
+#: Where the reference's ``models.neural.load_params`` looks for a trained
+#: neural voter (camkifu_tpu/models/neural.py ``DEFAULT_CKPT``).
+NEURAL_CKPT = os.path.expanduser("~/.camkifu_tpu/sf_neural_ckpt")
 
 
 class MetaState(NamedTuple):
@@ -265,3 +284,158 @@ def set_stable(state: MetaState, board: np.ndarray) -> MetaState:
         stable=torch.as_tensor(board.astype(np.int8),
                                device=state.stable.device),
         votes=torch.zeros_like(state.votes))
+
+
+# ---------------------------------------------------------------------------
+# Host finder class (default algorithm; SURVEY §2.1 sf_meta), copied from
+# camkifu_tpu/stone/sf_meta.py. ``state`` (MetaState) lives on the device;
+# each batch's labels, corners, sharpness, alignment, agitation and trust
+# come to the host in one ``core.feeder.host_read``.
+# ---------------------------------------------------------------------------
+
+from camkifu_tpu_torch.core.feeder import host_read, to_device  # noqa: E402
+from camkifu_tpu_torch.stone.stonesfinder import StonesFinder as _SF  # noqa: E402
+
+
+def _neural_params():
+    """The reference's opt-in third voter: None unless a checkpoint was
+    trained. The port has no neural voter yet, so a checkpoint raises
+    rather than read with two voters where the reference reads with
+    three."""
+    if os.path.isdir(NEURAL_CKPT):
+        raise NotImplementedError(
+            f"a neural voter checkpoint is at {NEURAL_CKPT}, and the port "
+            f"has no neural voter: models/neural.py is ROADMAP Queue A "
+            f"item 8, not ported yet")
+    return None
+
+
+class SfMeta(_SF):
+    """The production finder host: carries the device scan state across
+    batches; human corrections invalidate votes at the touched positions."""
+
+    label = "meta"
+
+    #: BoardFinderAuto skips its separate tracking pass for this finder:
+    #: tracking runs fused with rectification+classification here
+    #: (track_read_batch — one gather instead of two per frame).
+    fused_tracking = True
+
+    def __init__(self, vmanager):
+        super().__init__(vmanager)
+        self.state = init_state(gsize=self.gsize,
+                                device=getattr(vmanager, "device", "cuda"))
+        # Opt-in neural voter: participates only if the user trained a
+        # checkpoint; absent checkpoint = classical ensemble only.
+        self.neural_params = _neural_params()
+        # --sgf resume: the loaded game's board is ground truth (SURVEY §5).
+        if self.controller is not None:
+            board = self.controller.stones()
+            if board.any():
+                self.state = set_stable(self.state, board)
+                self._resync()
+
+    def _doframe(self, frames, n=None) -> None:
+        """Use the fused track+rectify+classify+scan pass when the board
+        finder maintains a tracking seed (BoardFinderAuto); otherwise the
+        classic path (fixed/manual corners) via the base class."""
+        bf = getattr(self.vmanager, "board_finder", None)
+        seed = getattr(bf, "track_seed", None)
+        if seed is None:
+            return super()._doframe(frames, n)
+        (self.state, labels, conf, agitation, corners, sharp, align,
+         new_seed) = track_read_batch(
+            self.state, frames, seed, gsize=self.gsize,
+            neural_params=self.neural_params,
+            valid_count=self._valid_arg(frames, n),
+            lens=getattr(bf, "lens", None))
+        corners, sharp, align, labels, agitation, trust = host_read(
+            corners, sharp, align, labels, agitation, self.state.trust)
+        bf.report_tracking(corners, new_seed, float(sharp.mean()),
+                           bf.batch_align(align, sharp))
+        if getattr(bf, "suspect_batch", False):
+            # Jump trip fired on this batch: the labels were read through
+            # discontinuous corners (on_tracking_discontinuity already
+            # reset the scan state) — never diff them into moves.
+            self.metadata["status"] = "re-anchoring"
+            return
+        if getattr(bf, "fresh_anchor", False) \
+                and self._pose_vetoed(labels, bf):
+            return
+        self._report(agitation, trust)
+        self._consume(labels, n)
+
+    def _pose_vetoed(self, labels, bf) -> bool:
+        """Cross-check a freshly anchored pose against the committed game.
+
+        Full detection can be confidently WRONG — measured: stone-saturated
+        boards rotated ≥~14° in-plane detect 3–8 cells off at score
+        0.27–0.35 (the 1D combs cannot express that basin). A pose that is
+        cells off reads the committed stones scrambled, and within a vote
+        window the bulk self-correction machinery would rewrite the entire
+        kifu onto the impostor lattice. The committed game is the one
+        ground truth that survives any camera event: if this batch's
+        readings disagree with ≥(1−POSE_VETO_MIN_AGREE) of the committed
+        stones, reject the pose (bf.reject_anchor — detection then re-runs
+        every batch until a consistent pose appears) and discard the
+        poisoned vote state. Below POSE_VETO_MIN_STONES committed stones
+        the check is off: sparse boards are the line-dominated regime where
+        detection is reliable (±25° envelope), and a handful of points
+        cannot distinguish pose error from capture lag or an occluding
+        hand.
+        """
+        committed = self.controller.stones() if self.controller is not None \
+            else self.extractor.state()
+        nz = committed != 0
+        if int(nz.sum()) < POSE_VETO_MIN_STONES:
+            return False
+        lab = np.asarray(labels)                       # (B, g, g)
+        agree = float((lab[:, nz] == committed[nz]).mean())
+        self.metadata["pose_agreement"] = round(agree, 3)
+        if agree >= POSE_VETO_MIN_AGREE:
+            return False
+        bf.reject_anchor()
+        # The batch already folded into the scan state before the veto
+        # could fire — re-seed perception from the committed game, as with
+        # any discontinuity.
+        self.state = set_stable(self.state, committed)
+        self.metadata["status"] = "re-anchoring"
+        return True
+
+    @staticmethod
+    def _valid_arg(frames, n):
+        """The valid count of a padded batch as a Python int, None when
+        full: the scan compares it with a device ``arange``, so nothing
+        waits for the card."""
+        if n is None or n >= frames.shape[0]:
+            return None
+        return int(n)
+
+    def _find(self, frames, corners):
+        self.state, labels, conf, agitation = read_batch(
+            self.state, frames,
+            to_device(np.asarray(corners, np.float32), frames.device),
+            gsize=self.gsize, neural_params=self.neural_params,
+            valid_count=self._valid_arg(frames, self._batch_valid),
+            lens=self._bf_lens())
+        labels, agitation, trust = host_read(labels, agitation,
+                                             self.state.trust)
+        self._report(agitation, trust)
+        return labels, conf
+
+    def _report(self, agitation: np.ndarray, trust: np.ndarray) -> None:
+        self.metadata["agitation"] = round(float(agitation.mean()), 4)
+        self.metadata["regions_promoted"] = int((trust >= TRUST_PROMOTE).sum())
+
+    def _invalidate(self, positions) -> None:
+        self.state = reset_votes(self.state, positions)
+
+    def on_tracking_discontinuity(self) -> None:
+        """Camera bump: the batch just folded into the scan state was read
+        through wrong corners (on the fused path the evidence lands before
+        the trip can fire). Re-seed perception from the game model — the
+        committed kifu is the surviving ground truth — and zero the votes,
+        discarding the poisoned accumulation."""
+        board = self.controller.stones() if self.controller is not None \
+            else self.extractor.state()
+        self.state = set_stable(self.state, board)

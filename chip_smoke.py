@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``camkifu_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes the paths give it, then drives eight paths
+PyTorch version at the shapes the paths give it, then drives nine paths
 once each, counting kernel launches per path:
 
 - the still path: one board detection on a 1080p still
@@ -33,7 +33,13 @@ once each, counting kernel launches per path:
   from known corners), then a seeded 10-move handheld game at 720p
   through a k1 = 0.06 lens, calibrated on its first frame and read with
   ``sf_meta.track_read_batch(lens=...)``, and four cameras with four
-  lenses through ``multistream_track_read(lenses=...)``.
+  lenses through ``multistream_track_read(lenses=...)``;
+- the vision runtime (``filecheck.run_runtime``: ``VManagerSeq`` with
+  ``BoardFinderAuto`` and ``SfMeta``): the handheld game to its kifu, a
+  camera bump, the pose veto of a resumed 200-move game, the lens game
+  calibrated at its first anchor, the threaded ``VManager`` with its
+  CUDA-stream frame feeder, the first batches through ``device="cpu"``,
+  and the host waits of its batches.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -188,6 +194,27 @@ LENS_OPS_PX = 15
 #: from batch to batch (about 1e-3 px after 7 batches at 720p). A stream
 #: read through another's camera is off by the shifts above, ≥ 10 px.
 MS_STREAM_TOL_PX = 1e-2
+
+#: The vision runtime (``filecheck.run_runtime``: ``VManagerSeq`` with
+#: ``BoardFinderAuto`` and ``SfMeta``) at 720p, the size of the reference's
+#: runtime tests, in batches of 16: the handheld game; the camera bump of
+#: tests/test_tracking.py (6 moves, seed 17, a 2.5° turn and a (34, −22) px
+#: shift mid-game); the pose veto of tests/test_pose_veto.py (a 200-move
+#: game resumed from its SGF, 48 frames through a camera turned 17°, then
+#: the same game unturned with one more move); the lens game. Calls timed
+#: for each frames/s.
+RUNTIME_BATCH = 16
+BUMP_MOVES = 6
+BUMP_SEED = 17
+BUMP_TURN_DEG = 2.5
+BUMP_SHIFT = (34.0, -22.0)
+VETO_MOVES = 200
+VETO_SEED = 9
+VETO_TURN_DEG = 17.0
+VETO_FRAMES = 48
+RUNTIME_REPS = 3
+#: Steady tracked batches whose device ops and host waits are counted.
+RUNTIME_STEADY_PROFILED = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -2250,6 +2277,446 @@ def phase_lens_times(lens_run: dict, card: str) -> dict:
     return {"ms": med}
 
 
+def _render_frames(specs) -> list:
+    """720p frames of (labels, pinhole corners, noise seed) specs, rendered
+    on threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from camkifu_tpu_torch.utils.still import render_still
+
+    with ThreadPoolExecutor(max_workers=HANDHELD_RENDER_THREADS) as pool:
+        return list(pool.map(lambda s: render_still(
+            s[0], frame_hw=HANDHELD_HW, seed=s[2], corners=s[1])[0], specs))
+
+
+def _turned(corners, deg: float):
+    """``corners`` turned by ``deg`` degrees about their center."""
+    import numpy as np
+
+    ctr = corners.mean(axis=0)
+    th = np.deg2rad(deg)
+    rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]],
+                   np.float32)
+    return (ctr + (corners - ctr) @ rot.T).astype(np.float32)
+
+
+def _moves_of(moves) -> list:
+    return [(m.color, m.row, m.col) for m in moves]
+
+
+def _runtime_vm(frames, dev, sgf=None, lens_checked=False):
+    """The stack of ``filecheck.run_runtime`` over ``frames`` on ``dev``
+    (resumed from ``sgf``), instrumented: after each batch it records both
+    finders' metadata, the published per-frame corners and the labels
+    diffed into moves. → (controller, manager, records)."""
+    import numpy as np
+
+    from camkifu_tpu_torch.board.bf_auto import BoardFinderAuto
+    from camkifu_tpu_torch.core.capture import ArrayCapture
+    from camkifu_tpu_torch.core.controllerv import ControllerVSeq
+    from camkifu_tpu_torch.core.vmanager import VManagerSeq
+    from camkifu_tpu_torch.stone.sf_meta import SfMeta
+
+    controller = ControllerVSeq(sgffile=sgf)
+    vm = VManagerSeq(controller, video=None, bf_class=BoardFinderAuto,
+                     sf_class=SfMeta, batch=RUNTIME_BATCH, device=dev)
+    vm.capture = ArrayCapture(frames)
+    vm.instantiate_finders()
+    vm.board_finder._lens_checked = lens_checked
+    records, held = [], {}
+    sf, bf = vm.stones_finder, vm.board_finder
+    consume, record = sf._consume, vm.stats.record
+
+    def spy_consume(labels, n):
+        held["labels"] = np.array(labels)[:n]
+        return consume(labels, n)
+
+    def spy_record(n, **fields):
+        cb = bf.corners_batch
+        records.append({"bf": dict(bf.metadata), "sf": dict(fields),
+                        "corners": None if cb is None else np.array(cb),
+                        "labels": held.pop("labels", None)})
+        return record(n, **fields)
+
+    sf._consume, vm.stats.record = spy_consume, spy_record
+    return controller, vm, records
+
+
+def _runtime_session(frames, dev, sgf=None, lens_checked=False):
+    """``_runtime_vm`` run to the end of ``frames``."""
+    import torch
+
+    controller, vm, records = _runtime_vm(frames, dev, sgf, lens_checked)
+    t0 = time.perf_counter()
+    vm.run()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return controller, vm, records, time.perf_counter() - t0
+
+
+def _threaded_session(frames, dev):
+    """The threaded ``VManager`` (its ``DeviceFeeder`` on a side CUDA
+    stream) over ``frames``, started with ``vision_on`` and joined at the
+    end of the stream. → (controller, manager, error events, seconds)."""
+    from camkifu_tpu_torch.board.bf_auto import BoardFinderAuto
+    from camkifu_tpu_torch.core.capture import ArrayCapture
+    from camkifu_tpu_torch.core.controllerv import ControllerV
+    from camkifu_tpu_torch.core.vmanager import VManager
+    from camkifu_tpu_torch.stone.sf_meta import SfMeta
+
+    controller = ControllerV()
+    errors = []
+    controller.listeners.append(
+        lambda event, *args: errors.append(args) if event == "error"
+        else None)
+    vm = VManager(controller, video=None, bf_class=BoardFinderAuto,
+                  sf_class=SfMeta, batch=RUNTIME_BATCH, device=dev)
+    vm.capture = ArrayCapture(frames)
+    vm.init_capture = lambda: None           # keep the given capture
+    t0 = time.perf_counter()
+    vm.vision_on()
+    deadline = t0 + 600
+    while vm.is_running() and time.perf_counter() < deadline:
+        controller.process_pipe()
+        time.sleep(0.005)
+    dt = time.perf_counter() - t0
+    running = vm.is_running()
+    vm.vision_off()
+    controller.process_pipe()
+    _require(not running, "threaded runtime: the worker did not finish")
+    return controller, vm, errors, dt
+
+
+def _next_legal(moves, board):
+    """tests/test_pose_veto.py's next move: the first empty point, in
+    order, where the side to play may legally put a stone. → (move, the
+    board after it)."""
+    from camkifu_tpu_torch.gamemodel.move import B, W, Move
+    from camkifu_tpu_torch.gamemodel.rules import IllegalMove, RuleUnsafe
+
+    rule = RuleUnsafe(gsize=19)
+    for m in moves:
+        rule.put(m)
+        rule.confirm()
+    color = B if moves[-1].color == W else W
+    for r in range(19):
+        for c in range(19):
+            if board[r, c] != 0:
+                continue
+            cand = Move("np", (color, r, c), gsize=19)
+            try:
+                rule.put(cand)
+            except IllegalMove:
+                continue
+            rule.confirm()
+            return cand, rule.as_labels()
+    raise SmokeFailure("pose veto: no legal move left")
+
+
+def phase_runtime(handheld: dict, lens_run: dict, dev) -> dict:
+    """The vision runtime on the card: the handheld game through
+    ``filecheck.run_runtime``'s stack (the path's kernel launches counted
+    around it), a camera bump, both pose-veto scenarios, the lens game
+    (k1 calibrated at the first anchor), the threaded ``VManager`` with
+    its CUDA-stream feeder, and the handheld game's first batches through
+    ``device="cpu"``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.core.gamesync import score_moves
+    from camkifu_tpu_torch.gamemodel.kifu import Kifu
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.utils.still import (default_corners, game_states,
+                                                sample_moves)
+
+    frames = list(handheld["frames"])
+    truth = _moves_of(handheld["moves"])
+    t0 = time.perf_counter()
+    _reset_counts()
+    ctrl, vm, recs, dt = _runtime_session(frames, dev)
+    counts = _read_counts()
+    got = _moves_of(ctrl.kifu.moves())
+    bf = vm.board_finder
+    cb = bf.corners_batch
+    report = score_moves(ctrl.kifu.moves(), handheld["moves"])
+    print(f"runtime, handheld game: {len(frames)} frames {HANDHELD_HW[0]}p "
+          f"through VManagerSeq + BoardFinderAuto + SfMeta in batches of "
+          f"{RUNTIME_BATCH}, {report['good']}/{report['ref_moves']} moves "
+          f"right, agreement {report['agreement']}, lens_k1 "
+          f"{bf.metadata.get('lens_k1')}, corners_batch "
+          f"{None if cb is None else cb.shape}, trips "
+          f"{[r['bf'].get('track_trip') for r in recs]}, launches {counts} "
+          f"({dt:.2f} s)", flush=True)
+    _require(got == truth, "runtime: the handheld game was misread")
+    _require(bf.metadata.get("lens_k1") == 0.0,
+             "runtime: a lens on the pinhole handheld game")
+    _require(cb is not None and cb.shape == (RUNTIME_BATCH, 4, 2),
+             "runtime: no per-frame corners published")
+    _require_launched(counts, "runtime")
+    card_recs = recs
+
+    # A camera bump mid-game.
+    bmoves = sample_moves(BUMP_MOVES, seed=BUMP_SEED)
+    states = list(game_states(bmoves))
+    base = default_corners(HANDHELD_HW)
+    bumped = _turned(base, BUMP_TURN_DEG) + np.float32(BUMP_SHIFT)
+    fpm = cvconf.vote_window + 3
+    specs = []
+
+    def emit(labels, corners, n):
+        for _ in range(n):
+            specs.append((labels, corners, BUMP_SEED + len(specs)))
+
+    emit(np.zeros((19, 19), np.int8), base, 6)
+    for labels in states[:3]:                 # a steady camera
+        emit(labels, base, fpm)
+    emit(states[2], bumped, 32)               # the knock, then a pause
+    for labels in states[3:]:                 # the new pose
+        emit(labels, bumped, fpm)
+    emit(states[-1], bumped, 12)
+    ctrl, vm, recs, dt = _runtime_session(_render_frames(specs), dev)
+    trips = [r["bf"].get("track_trip") for r in recs]
+    print(f"runtime, camera bump ({BUMP_TURN_DEG}° and {BUMP_SHIFT} px "
+          f"after move 3): {len(specs)} frames, moves "
+          f"{'all read' if _moves_of(ctrl.kifu.moves()) == _moves_of(bmoves) else 'MISREAD'}"
+          f" ({len(ctrl.kifu)}/{len(bmoves)}), trips per batch {trips} "
+          f"({dt:.2f} s)", flush=True)
+    _require(_moves_of(ctrl.kifu.moves()) == _moves_of(bmoves),
+             "runtime: a move was lost around the camera bump")
+    _require("jump" in trips, "runtime: the bump did not trip the tracker")
+
+    # The pose veto: a saturated game resumed from its SGF.
+    vmoves = sample_moves(VETO_MOVES, seed=VETO_SEED)
+    final = list(game_states(vmoves))[-1]
+    nxt, after = _next_legal(vmoves, final)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "late.sgf")
+        kifu = Kifu.new(path)
+        for m in vmoves:
+            kifu.append(m)
+        kifu.save()
+        turned = _render_frames([(final, _turned(base, VETO_TURN_DEG),
+                                  70 + i) for i in range(VETO_FRAMES)])
+        ctrl, vm, recs, dt = _runtime_session(turned, dev, sgf=path)
+        vetoed = (_moves_of(ctrl.kifu.moves()) == _moves_of(vmoves),
+                  vm.board_finder.metadata.get("track_trip"),
+                  vm.board_finder.ready())
+        frames_b = _render_frames(
+            [(final, base, 70 + i) for i in range(16)]
+            + [(after, base, 170 + i)
+               for i in range(cvconf.vote_window + 19)])
+        ctrl, vm, recs, dt_b = _runtime_session(frames_b, dev, sgf=path)
+        accepted = (_moves_of(ctrl.kifu.moves())
+                    == _moves_of(vmoves) + _moves_of([nxt]),
+                    vm.board_finder.metadata.get("track_trip"),
+                    vm.board_finder.ready())
+    print(f"runtime, pose veto on a {VETO_MOVES}-move game resumed from its "
+          f"SGF: turned {VETO_TURN_DEG}° → kifu "
+          f"{'unchanged' if vetoed[0] else 'CHANGED'}, trip {vetoed[1]}, "
+          f"board finder ready {vetoed[2]} ({dt:.2f} s); unturned with one "
+          f"more move → {'appended' if accepted[0] else 'NOT APPENDED'}, "
+          f"trip {accepted[1]}, ready {accepted[2]} ({dt_b:.2f} s)",
+          flush=True)
+    _require(vetoed == (True, "pose_veto", False),
+             "runtime: the turned camera's pose was not vetoed")
+    _require(accepted[0] and accepted[1] != "pose_veto" and accepted[2],
+             "runtime: the consistent pose was refused")
+
+    # The lens game: k1 calibrated at the first anchor.
+    lens_frames = list(lens_run["frames"])
+    lens_before = warp_kernel.lens_launches
+    ctrl, vm, recs, dt = _runtime_session(lens_frames, dev)
+    lens_warps = warp_kernel.lens_launches - lens_before
+    k1 = vm.board_finder.metadata.get("lens_k1")
+    lens_ok = _moves_of(ctrl.kifu.moves()) == _moves_of(lens_run["moves"])
+    print(f"runtime, lens game (k1 = {LENS_GAME_K1}): calibrated k1 {k1} at "
+          f"the first anchor (tol {LENS_DETECT_TOL}), moves "
+          f"{'all read' if lens_ok else 'MISREAD'}, {lens_warps} warp "
+          f"launches in lens mode ({dt:.2f} s)", flush=True)
+    _require(k1 is not None and abs(k1 - LENS_GAME_K1) < LENS_DETECT_TOL,
+             "runtime: the lens was not calibrated at the first anchor")
+    _require(lens_ok, "runtime: the lens game was misread")
+    _require(lens_warps > 0, "runtime: the warp never ran in lens mode")
+
+    # The threaded manager.
+    ctrl, vm, errors, dt = _threaded_session(frames, dev)
+    same = _moves_of(ctrl.kifu.moves()) == truth
+    print(f"runtime, threaded VManager with the CUDA-stream feeder: "
+          f"{'the same kifu' if same else 'ANOTHER KIFU'}, errors {errors} "
+          f"({dt:.2f} s)", flush=True)
+    _require(not errors, "threaded runtime: the worker reported an error")
+    _require(same, "threaded runtime: another kifu than the sequential one")
+
+    # The first batches through device="cpu". The card's run calibrated
+    # k1 = 0.0 (gated above), which changes nothing downstream, so the CPU
+    # run skips the calibration.
+    n_cpu = HANDHELD_CPU_FRAMES // RUNTIME_BATCH
+    _, _, cpu_recs, dt = _runtime_session(frames[:HANDHELD_CPU_FRAMES],
+                                          "cpu", lens_checked=True)
+    d_px, same = 0.0, len(cpu_recs) == n_cpu
+    for c, d in zip(cpu_recs, card_recs[:n_cpu]):
+        if (c["corners"] is None) != (d["corners"] is None):
+            same = False
+        elif c["corners"] is not None:
+            d_px = max(d_px, float(np.abs(c["corners"] - d["corners"]).max()))
+        same = same and all(
+            c[k].get(f) == d[k].get(f)
+            for k, f in (("sf", "status"), ("bf", "track_trip")))
+        same = same and (c["labels"] is None) == (d["labels"] is None) and (
+            c["labels"] is None or np.array_equal(c["labels"], d["labels"]))
+    print(f"runtime, device=\"cpu\" on the first {HANDHELD_CPU_FRAMES} "
+          f"frames: corners within {d_px:.4f} px of the card's (tol "
+          f"{TOL_CPU_PX}), labels and records "
+          f"{'equal' if same else 'DIFFER'} ({dt:.1f} s)", flush=True)
+    _require(d_px < TOL_CPU_PX, "runtime: card and CPU corners disagree")
+    _require(same, "runtime: card and CPU labels or records disagree")
+    print(f"runtime phase checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"launches": counts, "lens_launches": lens_warps}
+
+
+def phase_runtime_kernels(game: dict, lens_game: dict, dev) -> list[dict]:
+    """Each kernel against its plain version at the runtime's 720p shapes
+    that no earlier phase checks: ``BoardFinderAuto._detect``'s sample of
+    4 frames of a batch (edge and hysteresis at N = 8, Hough at B = 4, the
+    shared gray rect 4 × 720p → 320²), the fused tracker's canvas (16 ×
+    720p RGB → 336²), and through the lens game's k1 the sample's
+    undistort (4 × 720p RGB), the lens canvas, and the first anchor's
+    calibration probes: ``_detect_k1_probe``'s undistort of one 720p RGB
+    frame and ``_corners_bow_probe``'s 513² rect of a 720p gray frame."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board.bf_auto import (REFINE_RES,
+                                                  _detect_prepare_batch,
+                                                  _rect_H, resize_bilinear)
+    from camkifu_tpu_torch.ops.color import rgb_to_gray_u8
+    from camkifu_tpu_torch.ops.cuda import hough_kernel, warp_kernel
+    from camkifu_tpu_torch.ops.edges import edge_map_batch
+    from camkifu_tpu_torch.ops.hough import topk_edge_points
+    from camkifu_tpu_torch.ops.lens import make_lens, undistort_pts
+    from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
+
+    step = RUNTIME_BATCH // 4
+    frames = torch.from_numpy(game["frames"][:RUNTIME_BATCH]).to(dev)
+    sample = frames[::step][:4].contiguous()
+    lframes = torch.from_numpy(lens_game["frames"][:RUNTIME_BATCH]).to(dev)
+    lsample = lframes[::step][:4].contiguous()
+    lens = tuple(make_lens(LENS_GAME_K1, HANDHELD_HW))
+    grays, quads, _ = _detect_prepare_batch(sample, 256)
+    rect_H = _rect_H(torch.quantile(quads, 0.5, dim=0), 0.10, REFINE_RES)
+    seed = torch.from_numpy(game["truth"][0]).to(dev)
+    pin = undistort_pts(make_lens(LENS_GAME_K1, HANDHELD_HW),
+                        torch.from_numpy(lens_game["truth"][0]).to(dev))
+    lgray = rgb_to_gray_u8(lframes[0])[None, :, :, None].contiguous()
+    scale = 1.0 / 255.0
+    shapes = (
+        ("runtime detection rect", grays[..., None].contiguous(), rect_H,
+         (REFINE_RES,) * 2, scale, None),
+        ("runtime canvas", frames, _canvas_H(seed, 19), (336, 336), scale,
+         None),
+        ("runtime lens undistort", lsample, torch.eye(3, device=dev),
+         HANDHELD_HW, 1.0, lens),
+        ("runtime lens canvas", lframes, _canvas_H(pin, 19), (336, 336),
+         scale, lens),
+        ("runtime k1 probe undistort", lframes[:1].contiguous(),
+         torch.eye(3, device=dev), HANDHELD_HW, 1.0, lens),
+        ("runtime bow probe rect", lgray,
+         homography_dlt(canonical_corners(19, 27, dev), pin), (513, 513),
+         scale, lens),
+    )
+    cases = []
+    for path, x, H, hw, sc, ln in shapes:
+        H = H.contiguous()
+        extra = () if ln is None else (ln,)
+        err = _check_warp(x, H, hw, f" ({path})", lens=ln, scale=sc)
+        cases.append(_case(
+            "warp", f"{tuple(x.shape)} u8 → {hw[0]}×{hw[1]}×{x.shape[-1]}"
+            + ("" if ln is None else ", lens"), path,
+            lambda x=x, H=H, hw=hw, sc=sc, e=extra:
+                warp_kernel.warp_homography(x, H, hw, sc, *e),
+            lambda x=x, H=H, hw=hw, sc=sc, e=extra:
+                warp_kernel.warp_homography_ref(x, H, hw, sc, *e),
+            err, bound_warp(x, hw, lens=ln is not None),
+            library=lambda x=x, H=H, hw=hw, sc=sc, ln=ln: grid_sample_case(
+                x, H, hw, sc, ln)))
+
+    small = resize_bilinear(rgb_to_gray_u8(sample).float() / 255.0,
+                            (256, 256))
+    chroma = resize_bilinear((sample[..., 0].float() - sample[..., 2].float())
+                             / 255.0, (256, 256))
+    cases += _edge_cases(torch.cat([small, chroma]).contiguous(), "runtime",
+                         " at N = 8 (runtime)")
+    pts, wts = topk_edge_points(edge_map_batch(small))
+    pts, wts = pts.contiguous(), wts.contiguous()
+    rho_max = float(np.hypot(256, 256))
+    cases.append(_case(
+        "hough", f"B = {pts.shape[0]}, K = {pts.shape[1]} → 128 × 256",
+        "runtime",
+        lambda: hough_kernel.hough_accumulate(pts, wts, rho_max, 128, 256),
+        lambda: hough_kernel.hough_accumulate_ref(pts, wts, rho_max, 128,
+                                                  256),
+        _check_hough(pts, wts, rho_max, " at B = 4 (runtime)"),
+        bound_hough(pts, wts)))
+    return cases
+
+
+def phase_runtime_times(handheld: dict, lens_run: dict, dev,
+                        card: str) -> dict:
+    """The runtime's device ops and host waits per batch (steady tracked
+    batches after the first anchor, and a periodic re-anchor), counted by
+    ``tools/profile_torch.py`` (which also profiles the first anchor), and
+    its frames/s: the handheld and lens games through
+    ``filecheck.run_runtime`` and the threaded manager over the handheld
+    game."""
+    from camkifu_tpu_torch import filecheck
+    from camkifu_tpu_torch.config import cvconf
+    from tools.profile_torch import ops_and_waits
+
+    t0 = time.perf_counter()
+    frames = list(handheld["frames"])
+    _, vm, _ = _runtime_vm(frames, dev)
+
+    def batch():
+        vm.run(max_batches=1)
+
+    batch()                                   # the first anchor
+    per = {"steady": [ops_and_waits(batch)
+                      for _ in range(RUNTIME_STEADY_PROFILED)]}
+    vm.board_finder._since_detect = cvconf.bf_period - 1
+    per["re-anchor"] = [ops_and_waits(batch)]
+    print(f"runtime host waits and device ops a batch of {RUNTIME_BATCH} x "
+          f"{HANDHELD_HW[0]}p on {card}: " + "; ".join(
+              f"{k} " + ", ".join(f"{w} waits / {o} ops" for o, w in v)
+              for k, v in per.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    lens_frames = list(lens_run["frames"])
+    runs = {"runtime": [], "lens runtime": [], "threaded": []}
+    for _ in range(RUNTIME_REPS):
+        runs["runtime"].append(
+            filecheck.run_runtime(frames, device=dev)[1]["fps"])
+        runs["lens runtime"].append(
+            filecheck.run_runtime(lens_frames, device=dev)[1]["fps"])
+        runs["threaded"].append(
+            len(frames) / _threaded_session(frames, dev)[3])
+    runs = {k: sorted(v) for k, v in runs.items()}
+    fps = {k: _median(v) for k, v in runs.items()}
+    print(f"runtime times on {card}, frames/s median [min, max] of "
+          f"{RUNTIME_REPS} calls, host clock, lens calibration at the first "
+          f"anchor included: " + ", ".join(
+              f"{k} {fps[k]:.1f} [{v[0]:.1f}, {v[-1]:.1f}]"
+              for k, v in runs.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"fps": fps, "waits": {k: [w for _, w in v]
+                                  for k, v in per.items()}}
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -2344,6 +2811,7 @@ def run_phases(dev, card: str) -> dict:
     print(f"sizes phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     paths["multi-stream"] = phase_multistream(film, handheld, dev)["launches"]
+    game = {k: handheld[k] for k in ("frames", "moves", "truth")}
     del film, handheld
     print(f"multi-stream phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -2369,11 +2837,22 @@ def run_phases(dev, card: str) -> dict:
                                                  lens_ms["launches"])
     lens_warps = {"lens": lens_run["lens_launches"],
                   "lens multi-stream": lens_ms["lens_launches"]}
+    lens_game = {k: lens_run[k] for k in ("frames", "moves", "truth")}
     del lens_run
     phase_kernel_times(lens_cases, card)
     cases += [_numbers_only(c) for c in lens_cases]
     del lens_cases
     print(f"lens phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runtime = phase_runtime(game, lens_game, dev)
+    runtime_cases = phase_runtime_kernels(game, lens_game, dev)
+    phase_kernel_times(runtime_cases, card)
+    cases += [_numbers_only(c) for c in runtime_cases]
+    del runtime_cases
+    tr = phase_runtime_times(game, lens_game, dev, card)
+    paths["runtime"] = runtime["launches"]
+    lens_warps["runtime"] = runtime["lens_launches"]
+    print(f"runtime phase {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = [_kernel_entry(name, source, replaces, cases, paths)
                for name, (source, replaces) in SOURCES.items()]
     kernels[0]["lens_launches_per_path"] = lens_warps
@@ -2399,7 +2878,11 @@ def run_phases(dev, card: str) -> dict:
                             tl["ms"]["track_read no lens"],
                         "estimate_lens_k1_ms": tl["ms"]["estimate_lens_k1"],
                         "estimate_lens_k1_corners_ms":
-                            tl["ms"]["estimate_lens_k1_corners"]}}
+                            tl["ms"]["estimate_lens_k1_corners"],
+                        "runtime_fps": tr["fps"]["runtime"],
+                        "runtime_lens_fps": tr["fps"]["lens runtime"],
+                        "runtime_threaded_fps": tr["fps"]["threaded"],
+                        "runtime_host_waits": tr["waits"]}}
 
 
 def main() -> int:

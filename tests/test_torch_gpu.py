@@ -686,3 +686,86 @@ def test_one_camera_and_a_stacked_lens_take_the_same_bits_on_the_card():
     both = L.stack_lenses([one, L.make_lens(-0.04, hw)], dev)
     for fn in (L.distort_pts, L.undistort_pts):
         assert torch.equal(fn(one, pts[0]), fn(both, pts)[0])
+
+
+def test_device_feeder_batches_equal_the_frames_bitwise():
+    """The CUDA-stream feeder over 3× its pinned ring (and a padded tail):
+    each batch, copied on the consumer's stream behind a device spin and
+    then dropped, equals its frames bit for bit. A pinned slot refilled
+    before its copy finished, a consumer stream that does not wait for the
+    copy, or a batch's memory reused while that stream still reads it
+    would each change a batch."""
+    from camkifu_tpu_torch.core.capture import ArrayCapture, pad_batch
+    from camkifu_tpu_torch.core.feeder import DeviceFeeder
+
+    dev = _device()
+    depth, batch = 2, 8
+    n_batches = 3 * (depth + 1) + 1
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (n_batches * batch - 3, 360, 640, 3),
+                          dtype=np.uint8)
+    feeder = DeviceFeeder(ArrayCapture(list(frames)), batch, depth=depth,
+                          device=dev)
+    kept, meta = [], []
+    try:
+        for dev_frames, n, done, last in feeder:
+            torch.cuda._sleep(20_000_000)          # the consumer is busy
+            kept.append(dev_frames.clone())        # queued behind the spin
+            meta.append((n, done, last))
+            del dev_frames
+    finally:
+        feeder.close()
+    assert len(kept) == n_batches
+    for i, (got, (n, done, last)) in enumerate(zip(kept, meta)):
+        want, k = pad_batch(frames[i * batch:(i + 1) * batch], batch)
+        assert (n, done) == (k, i == n_batches - 1)
+        assert got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(want))
+        assert np.array_equal(last, want[n - 1])
+
+
+def test_runtime_steady_batch_reads_the_host_once():
+    """A warm steady tracked batch of the runtime (VManagerSeq,
+    BoardFinderAuto, SfMeta; no detection) with every synchronizing call
+    an error: the one batched host read (``core.feeder.host_read``, an
+    event wait) is its only wait."""
+    from camkifu_tpu_torch.board.bf_auto import BoardFinderAuto
+    from camkifu_tpu_torch.core.capture import ArrayCapture
+    from camkifu_tpu_torch.core.controllerv import ControllerVSeq
+    from camkifu_tpu_torch.core.vmanager import VManagerSeq
+    from camkifu_tpu_torch.stone import sf_meta
+    from camkifu_tpu_torch.utils.still import (handheld_corners,
+                                                render_game, sample_moves)
+
+    dev = _device()
+    hw = (720, 1280)
+    frames, _ = render_game(sample_moves(3, seed=5), 12, frame_hw=hw,
+                            seed=5, empty_leadin=12,
+                            corners=handheld_corners(48, hw), workers=8)
+    vm = VManagerSeq(ControllerVSeq(), video=None,
+                     bf_class=BoardFinderAuto, sf_class=sf_meta.SfMeta,
+                     batch=16)
+    assert vm.device.type == "cuda"              # the default device
+    vm.capture = ArrayCapture(list(frames))
+    vm.instantiate_finders()
+    vm.board_finder._lens_checked = True
+    vm.run(max_batches=2)                        # the anchor, one tracked
+    assert vm.board_finder.track_seed.is_cuda
+    reads = []
+    host_read = sf_meta.host_read
+
+    def counted(*tensors):
+        reads.append(len(tensors))
+        return host_read(*tensors)
+
+    sf_meta.host_read = counted
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vm.run(max_batches=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        sf_meta.host_read = host_read
+    assert reads == [6]
+    assert vm.board_finder._since_detect == 2
+    assert vm.board_finder.corners_batch.shape == (16, 4, 2)
+    assert vm.stones_finder.state.votes.is_cuda

@@ -19,8 +19,20 @@ MODULES = [
     "camkifu_tpu_torch.gamemodel",
     "camkifu_tpu_torch.gamemodel.move",
     "camkifu_tpu_torch.gamemodel.rules",
+    "camkifu_tpu_torch.gamemodel.sgf",
+    "camkifu_tpu_torch.gamemodel.kifu",
     "camkifu_tpu_torch.core",
     "camkifu_tpu_torch.core.gamesync",
+    "camkifu_tpu_torch.core.controllerv",
+    "camkifu_tpu_torch.core.video",
+    "camkifu_tpu_torch.core.capture",
+    "camkifu_tpu_torch.core.feeder",
+    "camkifu_tpu_torch.core.vmanager",
+    "camkifu_tpu_torch.utils.profiling",
+    "camkifu_tpu_torch.board.boardfinder",
+    "camkifu_tpu_torch.board.bf_manual",
+    "camkifu_tpu_torch.stone.stonesfinder",
+    "camkifu_tpu_torch.stone.sf_tuto",
     "camkifu_tpu_torch.pipeline",
     "camkifu_tpu_torch.filecheck",
     "camkifu_tpu_torch.board.bf_auto",

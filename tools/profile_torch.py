@@ -13,8 +13,12 @@ handheld path (c4): ``sf_meta.track_read_batch`` of those frames twice
 its vote scan's share and the unfused pair (``track_corners_batch`` +
 ``read_batch``) apart; c5 (``parallel.mesh._read_all_streams``, 8
 streams × 16 1080p frames) and ``multistream_track_read`` on the same
-streams, beside one stream's 16 frames through ``track_read_batch``. For
-each stage it prints the host wall time per
+streams, beside one stream's 16 frames through ``track_read_batch``;
+and the vision runtime (``runtime_batch``: ``VManagerSeq`` with
+``BoardFinderAuto`` and ``SfMeta`` over chip_smoke.py's 720p handheld
+game, batches of 16), one batch at a time: the first anchor (detection
+and the lens calibration), steady tracked batches and a periodic
+re-anchor. For each stage it prints the host wall time per
 call, the device kernel time, the device's busy share of the wall window,
 the number of kernels launched, the host's waits for the device (its
 synchronizing runtime calls, less the profiler's opening synchronize and
@@ -41,11 +45,27 @@ WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 OWN_WAITS = 2
 
 
-def _profile(name, fn, reps, trace=None):
+def ops_and_waits(fn) -> tuple[int, int]:
+    """(device ops, host waits) of one call of ``fn``, profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+              for e in events)
+    return ops, sum(e.name in WAIT_CALLS for e in events) - OWN_WAITS
+
+
+def _profile(name, fn, reps, trace=None, warmup=2):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -178,6 +198,26 @@ def main() -> int:
     _profile("c4_track_read_chunk16",
              lambda: sf_meta.track_read_batch(state, c5[0], c5_corners[0],
                                               chunk=chunk), 3, args.trace)
+    del c5
+
+    # The runtime, a batch a call: each call reads the next 16 frames.
+    from camkifu_tpu_torch.utils.still import handheld_corners
+
+    n = 6 + chip_smoke.HANDHELD_MOVES * (cvconf.vote_window + 3)
+    game, _ = render_game(
+        sample_moves(chip_smoke.HANDHELD_MOVES, seed=5),
+        cvconf.vote_window + 3, frame_hw=chip_smoke.HANDHELD_HW, seed=5,
+        empty_leadin=6, corners=handheld_corners(n, chip_smoke.HANDHELD_HW),
+        workers=chip_smoke.HANDHELD_RENDER_THREADS)
+    _, vm, _ = chip_smoke._runtime_vm(list(game), torch.device("cuda", 0))
+
+    def batch():
+        vm.run(max_batches=1)
+
+    _profile("runtime_batch_first_anchor", batch, 1, args.trace, warmup=0)
+    _profile("runtime_batch_steady", batch, 3, args.trace, warmup=0)
+    vm.board_finder._since_detect = cvconf.bf_period - 1
+    _profile("runtime_batch_reanchor", batch, 1, args.trace, warmup=0)
     return 0
 
 
