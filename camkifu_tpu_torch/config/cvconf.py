@@ -88,9 +88,11 @@ def bfinders():
 
 
 def sfinders():
+    from camkifu_tpu_torch.stone.sf_bgsub import SfBgSub
     from camkifu_tpu_torch.stone.sf_clustering import SfClustering
     from camkifu_tpu_torch.stone.sf_contours import SfContours
     from camkifu_tpu_torch.stone.sf_meta import SfMeta
+    from camkifu_tpu_torch.stone.sf_neural import SfNeural
     from camkifu_tpu_torch.stone.sf_tuto import SfTuto
 
-    return [SfMeta, SfClustering, SfContours, SfTuto]
+    return [SfMeta, SfClustering, SfContours, SfBgSub, SfNeural, SfTuto]

@@ -1,7 +1,8 @@
 """SfMeta (port of camkifu_tpu/stone/sf_meta.py): contours and clustering
-readings, per-region trust, motion gating and the temporal vote scan over
-a batch of frames, and the host finder class that carries the scan state
-across batches (the pose veto, SGF resume, vote invalidation).
+readings (and a trained net's, the opt-in third voter), per-region trust,
+motion gating and the temporal vote scan over a batch of frames, and the
+host finder class that carries the scan state across batches (the pose
+veto, SGF resume, vote invalidation).
 
 The classifiers and the motion gate are stateless per frame and run on the
 whole batch at once. Only the carry (votes, stable board, background,
@@ -21,11 +22,13 @@ import torch
 
 from camkifu_tpu_torch.board.bf_auto import rectify_track_batch
 from camkifu_tpu_torch.config import cvconf, guiconf
+from camkifu_tpu_torch.models import neural
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.ops.color import rgb_to_gray
 from camkifu_tpu_torch.ops.warp import warp_batch_chunked, warp_batch_fixed
 from camkifu_tpu_torch.ops.zones import zone_stats
 from camkifu_tpu_torch.stone import sf_clustering, sf_contours
+from camkifu_tpu_torch.stone.sf_neural import zone_probs
 from camkifu_tpu_torch.stone.votes import vote_update, zone_motion_gate
 
 #: Region-trust EMA rate and the threshold above which a region switches
@@ -49,9 +52,12 @@ BG_FACTOR = 4
 POSE_VETO_MIN_STONES = 15
 POSE_VETO_MIN_AGREE = 0.8
 
-#: Where the reference's ``models.neural.load_params`` looks for a trained
-#: neural voter (camkifu_tpu/models/neural.py ``DEFAULT_CKPT``).
-NEURAL_CKPT = os.path.expanduser("~/.camkifu_tpu/sf_neural_ckpt")
+#: The trained neural voter SfMeta picks up (``models.neural.DEFAULT_CKPT``).
+NEURAL_CKPT = neural.DEFAULT_CKPT
+
+#: Where the reference keeps its voter: an orbax directory, which the port
+#: does not read (camkifu_tpu/models/neural.py ``DEFAULT_CKPT``).
+JAX_NEURAL_CKPT = "~/.camkifu_tpu/sf_neural_ckpt"
 
 
 class MetaState(NamedTuple):
@@ -125,9 +131,10 @@ def read_batch(state: MetaState, frames: torch.Tensor,
     frames: (B, H, W, 3) uint8 (or float in [0, 1] on the CPU); corners:
     (4, 2), one fixed camera, or (B, 4, 2), one set per frame (a tracked
     camera, through ``warp_batch_chunked``), raw frame positions.
-    valid_count: frames at index ≥ it are capture padding (repeats of the
-    last real frame) and cast no votes. lens: an ``ops.lens.Lens`` of the
-    camera, or None for a pinhole one.
+    neural_params: a trained ``models.neural.PatchNet``, the third voter,
+    or None. valid_count: frames at index ≥ it are capture padding
+    (repeats of the last real frame) and cast no votes. lens: an
+    ``ops.lens.Lens`` of the camera, or None for a pinhole one.
     Returns (state, labels (B, g, g) int8, conf (B, g, g), agitation (B,)).
     """
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
@@ -158,10 +165,10 @@ def scan_streams(states: MetaState, canon: torch.Tensor, gsize: int,
     frames at once; the loop is over frames, each step updating every
     stream's carry. Returns (states, labels (n, B, g, g) int8, conf
     (n, B, g, g), agitation (n, B))."""
-    if neural_params is not None:
-        raise NotImplementedError(
-            "the neural voter is ROADMAP Queue A item 8 (models/neural.py), "
-            "not ported yet; no checkpoint ships")
+    if neural_params is not None \
+            and not isinstance(neural_params, neural.PatchNet):
+        raise TypeError("neural_params is a models.neural.PatchNet "
+                        "(params_from_jax converts a flax tree)")
     n, b = canon.shape[0], canon.shape[1]
     dev = canon.device
     flat = canon.reshape(n * b, *canon.shape[2:])
@@ -175,8 +182,18 @@ def scan_streams(states: MetaState, canon: torch.Tensor, gsize: int,
     lab_cont, conf_cont, lab_clus, conf_clus = (
         x.reshape(n, b, gsize, gsize)
         for x in (lab_cont, conf_cont, lab_clus, conf_clus))
-    lab_nn = torch.zeros_like(lab_cont)
-    conf_nn = torch.full_like(conf_cont, -1.0)
+    if neural_params is not None:
+        # Third voter (opt-in: only when a trained checkpoint exists). It
+        # competes per intersection by confidence like the others; its
+        # softmax max is discounted (CNNs are overconfident) so it breaks
+        # ties rather than overruling a decisive classical read.
+        probs = zone_probs(neural_params, flat, gsize, zone) \
+            .reshape(n, b, gsize, gsize, 3)
+        lab_nn = torch.argmax(probs, dim=-1).to(torch.int8)
+        conf_nn = 0.85 * probs.amax(dim=-1)
+    else:
+        lab_nn = torch.zeros_like(lab_cont)
+        conf_nn = torch.full_like(conf_cont, -1.0)
     luma_small = luma_small.reshape(n, b, *luma_small.shape[1:])
 
     # Motion gates: prev of frame i is frame i−1 (each stream's state
@@ -209,7 +226,7 @@ def scan_streams(states: MetaState, canon: torch.Tensor, gsize: int,
         trust_per = new_trust.reshape(n, 9)[:, region] \
             .reshape(n, gsize, gsize)
         # Eligible readings compete by confidence: contours always,
-        # clustering once its region's trust promotes.
+        # clustering once its region's trust promotes, the net when given.
         ck_eff = torch.where(trust_per >= TRUST_PROMOTE, conf_clus[:, i],
                              -1.0)
         confs = torch.stack([conf_cont[:, i], ck_eff, conf_nn[:, i]])
@@ -297,17 +314,20 @@ from camkifu_tpu_torch.core.feeder import host_read, to_device  # noqa: E402
 from camkifu_tpu_torch.stone.stonesfinder import StonesFinder as _SF  # noqa: E402
 
 
-def _neural_params():
-    """The reference's opt-in third voter: None unless a checkpoint was
-    trained. The port has no neural voter yet, so a checkpoint raises
-    rather than read with two voters where the reference reads with
-    three."""
-    if os.path.isdir(NEURAL_CKPT):
-        raise NotImplementedError(
-            f"a neural voter checkpoint is at {NEURAL_CKPT}, and the port "
-            f"has no neural voter: models/neural.py is ROADMAP Queue A "
-            f"item 8, not ported yet")
-    return None
+def _neural_params(device):
+    """The opt-in third voter: the trained net at ``NEURAL_CKPT`` on
+    ``device``, or None when none was trained. A reference checkpoint
+    without a port one raises, rather than read with two voters where the
+    reference reads with three."""
+    model = neural.load_params(NEURAL_CKPT, device=device)
+    if model is None and os.path.isdir(os.path.expanduser(JAX_NEURAL_CKPT)):
+        raise RuntimeError(
+            f"a neural voter checkpoint of the JAX package is at "
+            f"{JAX_NEURAL_CKPT} (orbax), which the port does not read; "
+            f"convert it to {NEURAL_CKPT}: np.savez(path, **{{'/'.join(k): v "
+            f"for k, v in the flattened jax.device_get(params)}}), keys "
+            f"such as 'params/Conv_0/kernel'")
+    return model
 
 
 class SfMeta(_SF):
@@ -323,11 +343,13 @@ class SfMeta(_SF):
 
     def __init__(self, vmanager):
         super().__init__(vmanager)
-        self.state = init_state(gsize=self.gsize,
-                                device=getattr(vmanager, "device", "cuda"))
+        device = getattr(vmanager, "device", "cuda")
+        self.state = init_state(gsize=self.gsize, device=device)
         # Opt-in neural voter: participates only if the user trained a
         # checkpoint; absent checkpoint = classical ensemble only.
-        self.neural_params = _neural_params()
+        self.neural_params = _neural_params(device)
+        if self.neural_params is not None:
+            self.metadata["neural"] = "on"
         # --sgf resume: the loaded game's board is ground truth (SURVEY §5).
         if self.controller is not None:
             board = self.controller.stones()

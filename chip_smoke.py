@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``camkifu_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes the paths give it, then drives nine paths
+PyTorch version at the shapes the paths give it, then drives ten paths
 once each, counting kernel launches per path:
 
 - the still path: one board detection on a 1080p still
@@ -39,7 +39,13 @@ once each, counting kernel launches per path:
   camera bump, the pose veto of a resumed 200-move game, the lens game
   calibrated at its first anchor, the threaded ``VManager`` with its
   CUDA-stream frame feeder, the first batches through ``device="cpu"``,
-  and the host waits of its batches.
+  and the host waits of its batches;
+- the remaining finders and the trainer (``models.neural``): 48 720p
+  boards harvested and a ``PatchNet`` trained at ``cktrain``'s defaults,
+  ``classify_batch_neural`` on 128 1080p frames, ``sf_meta.read_batch``
+  with the trained net as its third voter and ``sf_bgsub.read_batch`` over
+  the recorded game, bgsub's capture scenario, and the runtime with
+  ``SfBgSub``, ``SfNeural`` and ``SfMeta`` loading the trained checkpoint.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -215,6 +221,34 @@ VETO_FRAMES = 48
 RUNTIME_REPS = 3
 #: Steady tracked batches whose device ops and host waits are counted.
 RUNTIME_STEADY_PROFILED = 3
+
+#: The trainer at ``cktrain``'s defaults: 48 boards harvested at 720p
+#: (17,328 patches), 6 epochs of clip(17,328 // 12, 256, 2048) = 1,444,
+#: accuracy above tests/test_neural.py's bar, also on 8 boards of another
+#: seed; the steps timed after the first 12.
+TRAIN_BOARDS = 48
+TRAIN_HW = (720, 1280)
+TRAIN_EPOCHS = 6
+TRAIN_HELD_OUT = 8
+TRAIN_ACC = 0.97
+TRAIN_TIMED_FROM = 12
+#: The render threads of the harvest.
+TRAIN_RENDER_THREADS = 8
+#: The classifier at c2's shape (a board of its own seed): every board at
+#: least this agreement with its labels; card against CPU where the CPU's
+#: top-2 softmax margin exceeds NEURAL_MARGIN. The per-frame-corner branch
+#: on 16 720p frames of that board from a camera drifting NEURAL_DRIFT px,
+#: which keeps each frame within a pixel of its chunk's median corners:
+#: ``warp_batch_chunked`` shifts by at most +1 / −2 px and fades a frame
+#: further off (the reference's too). The handheld game's frames from
+#: NEURAL_HANDHELD_FROM on, up to 5.9 px off, are read and printed.
+NEURAL_AGREE = 0.97
+NEURAL_MARGIN = 0.02
+NEURAL_DRIFT = (1.0, 0.75)
+NEURAL_HANDHELD_FROM = 60
+#: The capture-and-removal scenario of tests/test_sf_bgsub.py, at its size.
+BGSUB_CAPTURE_HW = (360, 640)
+BGSUB_CAPTURE_BATCH = 13
 
 
 class SmokeFailure(RuntimeError):
@@ -835,7 +869,8 @@ def phase_film(dev) -> dict:
     _require(d_cpu < TOL_CPU_PX, "film: card and CPU corners disagree")
     _require(same_labels and same_stable,
              "film: card and CPU vote scans disagree")
-    return {"frames": frames, "corners": corners, "launches": counts}
+    return {"frames": frames, "corners": corners, "launches": counts,
+            "moves": moves}
 
 
 def _drift_labels() -> "np.ndarray":
@@ -2717,6 +2752,465 @@ def phase_runtime_times(handheld: dict, lens_run: dict, dev,
                                   for k, v in per.items()}}
 
 
+def _require_warp_launched(counts: dict, path: str) -> None:
+    _require(counts["warp"][0] > 0,
+             f"the warp kernel did not run on the {path} path")
+
+
+def _scored(labels, moves) -> dict:
+    """The moves that per-frame ``labels`` diff into, scored against
+    ``moves``."""
+    from camkifu_tpu_torch.core.gamesync import MoveExtractor, score_moves
+
+    ex = MoveExtractor()
+    for lab in labels:
+        ex.advance(lab)
+    return score_moves(ex.moves, moves)
+
+
+def _max_rel_param_diff(a, b) -> float:
+    """The largest over leaves of max|a − b| / max|b|."""
+    return max(float((p.detach().cpu() - q.detach().cpu()).abs().max()
+                     / q.detach().cpu().abs().max())
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def phase_train(dev, card: str) -> dict:
+    """The trainer at ``cktrain``'s defaults on the card: the harvest of 48
+    720p boards (one warp launch a chunk of 16), 72 AdamW steps of 1,444
+    patches, the accuracy gated on the last batch and on 8 boards of
+    another seed; the steps timed by CUDA events, the peak device memory,
+    and one step on the card against the same step on the CPU."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.core.feeder import to_device
+    from camkifu_tpu_torch.models import neural
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    patches, labels = neural.harvest_patches(
+        n_boards=TRAIN_BOARDS, frame_hw=TRAIN_HW, seed=0, device=dev,
+        workers=TRAIN_RENDER_THREADS)
+    torch.cuda.synchronize()
+    t_harvest = time.perf_counter() - t0
+    batch = int(np.clip(len(patches) // 12, 256, 2048))
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, acc = neural.train(patches, labels, epochs=TRAIN_EPOCHS,
+                              batch=batch)
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    own = peak - held_before / 2 ** 20
+    counts = _read_counts()
+    held_p, held_l = neural.harvest_patches(
+        n_boards=TRAIN_HELD_OUT, frame_hw=TRAIN_HW, seed=1, device=dev,
+        workers=TRAIN_RENDER_THREADS)
+    with torch.no_grad():
+        held = float((model(held_p).argmax(-1) == held_l).float().mean())
+    steps = TRAIN_EPOCHS * (len(patches) // batch)
+    print(f"train: {TRAIN_BOARDS} boards {TRAIN_HW[0]}p → {len(patches)} "
+          f"patches in {t_harvest:.2f} s (host clock, render and warp), "
+          f"{steps} steps of {batch} in {t_train:.2f} s, accuracy {acc:.4f} "
+          f"(last batch), {held:.4f} on {TRAIN_HELD_OUT} boards of another "
+          f"seed (bar {TRAIN_ACC}), peak device memory {peak:.1f} MiB "
+          f"({own:.1f} MiB above what the run held before), "
+          f"launches {counts}", flush=True)
+    _require(acc > TRAIN_ACC, "train: accuracy at or below the bar")
+    _require(held > TRAIN_ACC, "train: held-out accuracy at or below the bar")
+    _require_warp_launched(counts, "train")
+
+    # The same schedule again, each step between CUDA events.
+    m = neural.init_params(torch.Generator().manual_seed(0), device=dev)
+    opt = neural.make_optimizer(m)
+    rng = np.random.default_rng(0)
+    events = []
+    for _ in range(TRAIN_EPOCHS):
+        order = to_device(rng.permutation(len(patches)), dev)
+        for i in range(0, len(patches) - batch + 1, batch):
+            sel = order[i:i + batch]
+            px, ly = patches[sel], labels[sel]
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            neural.train_step(m, opt, px, ly)
+            ev[1].record()
+            events.append(ev)
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in events[TRAIN_TIMED_FROM:])
+    step_ms = _median(ms)
+
+    # One step from the same parameters and batch, card and CPU.
+    x, y = patches[:batch], labels[:batch]
+    on = {}
+    for d in (dev, "cpu"):
+        m = neural.init_params(torch.Generator().manual_seed(0), device=d)
+        loss, _ = neural.train_step(m, neural.make_optimizer(m), x.to(d),
+                                    y.to(d))
+        on[str(d)] = (float(loss), m)
+    (loss_d, m_d), (loss_c, m_c) = on[str(dev)], on["cpu"]
+    print(f"train times on {card}: a step of {batch} {step_ms:.3f} ms "
+          f"[{ms[0]:.3f}, {ms[-1]:.3f}] (median [min, max] of the last "
+          f"{len(ms)} of {len(events)}, CUDA events) = "
+          f"{batch / step_ms * 1e3:.0f} patches/s; one step card against "
+          f"CPU: loss {loss_d:.6f} / {loss_c:.6f} (difference "
+          f"{abs(loss_d - loss_c):.3g}), largest relative parameter "
+          f"difference after it {_max_rel_param_diff(m_d, m_c):.3g}",
+          flush=True)
+    return {"model": model, "launches": counts, "harvest_s": t_harvest,
+            "step_ms": step_ms, "patches_s": batch / step_ms * 1e3,
+            "peak_mib": peak, "own_mib": own, "accuracy": acc,
+            "held_out": held}
+
+
+def _margin_clear(model, canon, margin: float):
+    """Where the net's top-2 softmax margin on canonical images exceeds
+    ``margin`` (..., g, g)."""
+    import torch
+
+    from camkifu_tpu_torch.stone.sf_neural import zone_probs
+
+    top2 = torch.sort(zone_probs(model, canon), dim=-1).values[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > margin
+
+
+def phase_neural(model, handheld: dict, dev, card: str) -> dict:
+    """``classify_batch_neural`` with the trained net: 128 1080p copies of
+    a board of its own seed through fixed corners, and 16 720p frames of it
+    from a slowly drifting camera, each through its own corners
+    (``warp_batch_chunked``); every board's agreement gated, the card
+    against the CPU, then frames/s at c2's shape. The handheld game's
+    frames through their own corners are read and printed, not gated."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.models import neural
+    from camkifu_tpu_torch.ops.warp import warp_batch_chunked, \
+        warp_batch_fixed
+    from camkifu_tpu_torch.stone.sf_neural import classify_batch_neural
+    from camkifu_tpu_torch.utils.still import (game_states,
+                                                handheld_corners,
+                                                render_still)
+
+    board = np.zeros((19, 19), np.int8)
+    idx = np.random.default_rng(21).choice(361, 100, replace=False)
+    board.flat[idx[:50]], board.flat[idx[50:]] = 1, 2
+    frame, corners = render_still(board, frame_hw=FRAME_HW, seed=21)
+    frames = torch.from_numpy(frame).to(dev)[None].expand(
+        BATCH, *frame.shape).contiguous()
+    cs = torch.from_numpy(corners).to(dev)
+    slow = handheld_corners(16, HANDHELD_HW, drift=NEURAL_DRIFT)
+    hh = torch.from_numpy(np.stack(_render_frames(
+        [(board, c, 200 + t) for t, c in enumerate(slow)]))).to(dev)
+    hcs = torch.from_numpy(slow).to(dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    lab, conf = classify_batch_neural(model, frames, cs)
+    hlab, hconf = classify_batch_neural(model, hh, hcs)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    agree = (lab.cpu().numpy() == board).mean(axis=(1, 2))
+    hagree = (hlab.cpu().numpy() == board).mean(axis=(1, 2))
+
+    # The handheld game: up to 5.9 px of drift off a chunk's median.
+    lo = NEURAL_HANDHELD_FROM
+    fpm = cvconf.vote_window + 3
+    states = [np.zeros((19, 19), np.int8)] + list(
+        game_states(handheld["moves"]))
+    gtruth = np.stack([states[max(0, (i - 6) // fpm + 1)]
+                       for i in range(lo, lo + 16)])
+    glab, _ = classify_batch_neural(
+        model, torch.from_numpy(handheld["frames"][lo:lo + 16]).to(dev),
+        torch.from_numpy(handheld["truth"][lo:lo + 16]).to(dev))
+    gagree = (glab.cpu().numpy() == gtruth).mean(axis=(1, 2))
+    print(f"neural, the handheld game's frames {lo}–{lo + 15} through "
+          f"their own corners (not gated): agreement per frame "
+          f"{np.round(gagree, 4).tolist()}; warp_batch_chunked fades a "
+          f"frame more than a pixel off its chunk's median, as the "
+          f"reference's does", flush=True)
+    # The CPU: two of the copies, and the handheld frames.
+    cpu = neural.params_from_jax(neural.params_to_jax(model), "cpu")
+    lab_c, conf_c = classify_batch_neural(cpu, frames[:2].cpu(), cs.cpu())
+    hlab_c, hconf_c = classify_batch_neural(cpu, hh.cpu(), hcs.cpu())
+    clear = _margin_clear(cpu, warp_batch_fixed(
+        frames[:2].cpu(), cs.cpu(), scale=1 / 255), NEURAL_MARGIN)
+    hclear = _margin_clear(cpu, warp_batch_chunked(
+        hh.cpu(), hcs.cpu(), scale=1 / 255), NEURAL_MARGIN)
+    same = torch.equal(lab[:2].cpu()[clear], lab_c[clear]) and bool(
+        (lab == lab[:1]).all())
+    hsame = torch.equal(hlab.cpu()[hclear], hlab_c[hclear])
+    d_conf = max(float((conf[:2].cpu() - conf_c).abs().max()),
+                 float((hconf.cpu() - hconf_c).abs().max()))
+    runs = _cuda_ms_runs(lambda: classify_batch_neural(model, frames, cs),
+                         reps=20)
+    ms = _median(runs)
+    print(f"neural: classify_batch_neural on {BATCH} x {FRAME_HW[0]}p, "
+          f"agreement min {agree.min():.4f} (gate {NEURAL_AGREE}); 16 "
+          f"{HANDHELD_HW[0]}p frames of a camera drifting {NEURAL_DRIFT} px "
+          f"through their own corners, agreement min {hagree.min():.4f}; "
+          f"card against CPU labels "
+          f"{'equal' if same and hsame else 'DIFFER'} where the margin "
+          f"exceeds {NEURAL_MARGIN} ({int(clear.sum()) + int(hclear.sum())}"
+          f" of {clear.numel() + hclear.numel()}), confidences within "
+          f"{d_conf:.3g}; launches {counts}; times on {card}: {ms:.3f} ms "
+          f"[{runs[0]:.3f}, {runs[-1]:.3f}] = {BATCH / ms * 1e3:.1f} "
+          f"frames/s (median [min, max] of 20, CUDA events)", flush=True)
+    _require(agree.min() >= NEURAL_AGREE and hagree.min() >= NEURAL_AGREE,
+             "neural: a board read below the agreement gate")
+    _require(same and hsame, "neural: card and CPU labels disagree")
+    _require_warp_launched(counts, "neural")
+    return {"launches": counts, "fps": BATCH / ms * 1e3}
+
+
+def _read_game(read, state, frames, corners, dev, batch: int):
+    """``read(state, frames, corners, valid_count)`` over a game batch by
+    batch, the last padded, every synchronizing call an error from the
+    second batch on → (state, the real frames' labels)."""
+    import numpy as np
+    import torch
+
+    labels = []
+    try:
+        for i, lo in enumerate(range(0, len(frames), batch)):
+            fb = frames[lo:lo + batch]
+            n = len(fb)
+            vc = None if n == batch else n
+            if vc:
+                fb = np.concatenate([fb, np.repeat(fb[-1:], batch - n, 0)])
+            fb = torch.from_numpy(fb).to(dev)
+            torch.cuda.synchronize()
+            if i:
+                torch.cuda.set_sync_debug_mode("error")
+            state, lab, _, _ = read(state, fb, corners, vc)
+            torch.cuda.set_sync_debug_mode("default")
+            labels.extend(lab.cpu().numpy()[:vc])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return state, labels
+
+
+def phase_meta_voter(model, film: dict, dev, card: str) -> dict:
+    """SfMeta with the trained net as its third voter over the film game,
+    then c3's shape with and without the voter, in turns."""
+    import torch
+
+    from camkifu_tpu_torch.stone import sf_meta
+
+    corners = torch.from_numpy(film["corners"]).to(dev)
+    _reset_counts()
+    _, labels = _read_game(
+        lambda st, fb, cs, vc: sf_meta.read_batch(
+            st, fb, cs, neural_params=model, valid_count=vc),
+        sf_meta.init_state(device=dev), film["frames"], corners, dev,
+        FILM_BATCH)
+    counts = _read_counts()
+    report = _scored(labels, film["moves"])
+    c3 = torch.from_numpy(film["frames"])[
+        torch.arange(C3_BATCH) % len(film["frames"])].to(dev)
+    state0 = sf_meta.init_state(device=dev)
+    calls = {"without": lambda: sf_meta.read_batch(state0, c3, corners),
+             "with": lambda: sf_meta.read_batch(state0, c3, corners,
+                                                neural_params=model)}
+    runs = {k: [] for k in calls}
+    for k in ("without", "with", "with", "without"):
+        runs[k] += _cuda_ms_runs(calls[k], reps=10)
+    ms = {k: _median(sorted(v)) for k, v in runs.items()}
+    print(f"neural voter: sf_meta.read_batch(neural_params=net) over the "
+          f"film game ({len(film['frames'])} x {FILM_HW[0]}p, batches of "
+          f"{FILM_BATCH}), {report['good']}/{report['ref_moves']} moves "
+          f"right, agreement {report['agreement']}, no host wait from the "
+          f"second batch on, launches {counts}; c3 ({C3_BATCH} x "
+          f"{FILM_HW[0]}p) on {card}, median of 20 calls in turns: "
+          + ", ".join(f"{k} the voter {ms[k]:.3f} ms = "
+                      f"{C3_BATCH / ms[k] * 1e3:.1f} frames/s" for k in ms),
+          flush=True)
+    _require(report["agreement"] == 1.0,
+             "neural voter: the film game was misread")
+    _require_warp_launched(counts, "neural voter")
+    return {"launches": counts,
+            "fps": {k: C3_BATCH / v * 1e3 for k, v in ms.items()}}
+
+
+def phase_bgsub(film: dict, dev, card: str) -> dict:
+    """``sf_bgsub.read_batch`` over the film game, the capture-and-removal
+    scenario of tests/test_sf_bgsub.py on rendered boards, then frames/s,
+    device ops and host waits at c3's shape."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.stone import sf_bgsub
+    from camkifu_tpu_torch.utils.still import default_corners, render_still
+    from tools.profile_torch import ops_and_waits
+
+    corners = torch.from_numpy(film["corners"]).to(dev)
+    _reset_counts()
+    _, labels = _read_game(
+        lambda st, fb, cs, vc: sf_bgsub.read_batch(st, fb, cs,
+                                                   valid_count=vc),
+        sf_bgsub.init_state(device=dev), film["frames"], corners, dev,
+        FILM_BATCH)
+    report = _scored(labels, film["moves"])
+
+    # A white stone placed, captured and taken off the board.
+    a = np.zeros((19, 19), np.int8)
+    b = a.copy()
+    b[9, 9] = 2
+    hw = BGSUB_CAPTURE_HW
+    frames = np.stack(
+        [render_still(a, hw, seed=i)[0] for i in range(6)]
+        + [render_still(b, hw, seed=10 + i)[0] for i in range(10)]
+        + [render_still(a, hw, seed=30 + i)[0] for i in range(10)])
+    cap = torch.from_numpy(default_corners(hw)).to(dev)
+    _, outs = _read_game(
+        lambda st, fb, cs, vc: sf_bgsub.read_batch(st, fb, cs,
+                                                   valid_count=vc),
+        sf_bgsub.init_state(device=dev), frames, cap, dev,
+        BGSUB_CAPTURE_BATCH)
+    counts = _read_counts()
+    committed, removed = int(outs[14][9, 9]) == 2, \
+        int(outs[-1][9, 9]) == 0 and int(outs[-1].sum()) == 0
+
+    c3 = torch.from_numpy(film["frames"])[
+        torch.arange(C3_BATCH) % len(film["frames"])].to(dev)
+    state0 = sf_bgsub.init_state(device=dev)
+
+    def call():
+        return sf_bgsub.read_batch(state0, c3, corners)
+
+    runs = _cuda_ms_runs(call, reps=20)
+    ms = _median(runs)
+    ops, waits = ops_and_waits(call)
+    print(f"bgsub: sf_bgsub.read_batch over the film game, "
+          f"{report['good']}/{report['ref_moves']} moves right, agreement "
+          f"{report['agreement']}, no host wait from the second batch on; "
+          f"capture scenario at {hw[0]}p: stone "
+          f"{'committed' if committed else 'NOT COMMITTED'}, zone "
+          f"{'empty' if removed else 'NOT EMPTY'} after removal; launches "
+          f"{counts}; c3 ({C3_BATCH} x {FILM_HW[0]}p) on {card}: {ms:.3f} "
+          f"ms [{runs[0]:.3f}, {runs[-1]:.3f}] = {C3_BATCH / ms * 1e3:.1f} "
+          f"frames/s, {ops} device ops ({ops / C3_BATCH:.1f} a frame), "
+          f"{waits} host waits a call", flush=True)
+    _require(report["agreement"] == 1.0, "bgsub: the film game was misread")
+    _require(committed and removed,
+             "bgsub: the captured stone was not committed and removed")
+    _require_warp_launched(counts, "bgsub")
+    return {"launches": counts, "fps": C3_BATCH / ms * 1e3,
+            "ops_a_frame": ops / C3_BATCH, "waits": waits}
+
+
+def _finder_session(frames, dev, label: str):
+    """``filecheck.run_runtime``'s stack with the stones finder chosen by
+    ``label`` through the registry → (controller, manager, seconds)."""
+    import torch
+
+    from camkifu_tpu_torch.board.bf_auto import BoardFinderAuto
+    from camkifu_tpu_torch.core.capture import ArrayCapture
+    from camkifu_tpu_torch.core.controllerv import ControllerVSeq
+    from camkifu_tpu_torch.core.vmanager import VManagerSeq
+
+    controller = ControllerVSeq()
+    vm = VManagerSeq(controller, video=None, bf_class=BoardFinderAuto,
+                     batch=RUNTIME_BATCH, device=dev)
+    vm.capture = ArrayCapture(list(frames))
+    vm.select_sf(label)
+    t0 = time.perf_counter()
+    vm.run()
+    torch.cuda.synchronize()
+    return controller, vm, time.perf_counter() - t0
+
+
+def phase_runtime_finders(model, film: dict, handheld: dict, dev) -> dict:
+    """The runtime with this slice's finders: SfBgSub chosen by its label
+    over the film game; SfNeural over it with the trained net saved as the
+    port's checkpoint in a temporary home directory; SfMeta picking that
+    checkpoint up as its third voter over the handheld game."""
+    import os
+    import tempfile
+
+    from camkifu_tpu_torch.core.gamesync import score_moves
+    from camkifu_tpu_torch.models import neural
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    ctrl, vm, dt = _finder_session(film["frames"], dev, "bgsub")
+    bgsub_ok = _moves_of(ctrl.kifu.moves()) == _moves_of(film["moves"])
+    kind = type(vm.stones_finder).__name__
+    print(f"runtime, select_sf(\"bgsub\") → {kind}: film game "
+          f"{'read exactly' if bgsub_ok else 'MISREAD'} "
+          f"({len(ctrl.kifu)}/{len(film['moves'])} moves, {dt:.2f} s)",
+          flush=True)
+    _require(kind == "SfBgSub", "runtime: \"bgsub\" did not resolve")
+    _require(bgsub_ok, "runtime: SfBgSub misread the film game")
+
+    home = os.environ.get("HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HOME"] = tmp
+        try:
+            neural.save_params(model, neural.DEFAULT_CKPT)
+            ctrl, vm, dt = _finder_session(film["frames"], dev, "neural")
+            trained = "train" in vm.stones_finder.metadata
+            report = score_moves(ctrl.kifu.moves(), film["moves"])
+            print(f"runtime, select_sf(\"neural\") → "
+                  f"{type(vm.stones_finder).__name__} with the checkpoint "
+                  f"{'NOT LOADED (trained anew)' if trained else 'loaded'}:"
+                  f" film game agreement {report['agreement']} "
+                  f"({report['good']}/{report['ref_moves']}; not gated: the"
+                  f" reference gives SfNeural no vote) ({dt:.2f} s)",
+                  flush=True)
+            _require(not trained, "runtime: SfNeural did not load the "
+                     "checkpoint")
+            ctrl, vm, _, dt = _runtime_session(list(handheld["frames"]), dev)
+            voter = vm.stones_finder.neural_params is not None
+            meta_ok = _moves_of(ctrl.kifu.moves()) == _moves_of(
+                handheld["moves"])
+        finally:
+            if home is None:
+                del os.environ["HOME"]
+            else:
+                os.environ["HOME"] = home
+    counts = _read_counts()
+    print(f"runtime, SfMeta over the handheld game with the checkpoint: "
+          f"voter {'on' if voter else 'OFF'}, "
+          f"{'read exactly' if meta_ok else 'MISREAD'}, launches of the "
+          f"three sessions {counts} ({dt:.2f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    _require(voter, "runtime: SfMeta did not pick up the checkpoint")
+    _require(meta_ok, "runtime: SfMeta with the voter misread the handheld "
+             "game")
+    _require_launched(counts, "finders runtime")
+    return {"launches": counts}
+
+
+def phase_train_kernels(dev) -> list[dict]:
+    """The warp at the harvest's shape: a chunk of 16 720p boards, each
+    through its own homography (the harvest's perturbed corners)."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.models import neural
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
+    from camkifu_tpu_torch.utils.still import render_still
+
+    specs = neural._harvest_specs(neural.HARVEST_CHUNK, TRAIN_HW, 0)
+    frames = torch.from_numpy(np.stack([
+        render_still(s[0], TRAIN_HW, seed=s[2], corners=s[1])[0]
+        for s in specs])).to(dev)
+    wc = torch.from_numpy(np.stack([s[3] for s in specs])).to(dev)
+    H = homography_dlt(canonical_corners(device=dev), wc).contiguous()
+    out_hw, scale = (304, 304), 1.0 / 255.0
+    err = _check_warp(frames, H, out_hw, " (harvest)")
+    return [_case(
+        "warp", f"{tuple(frames.shape)} u8, {len(specs)} homographies → "
+        f"304²×3", "train harvest",
+        lambda: warp_kernel.warp_homography(frames, H, out_hw, scale),
+        lambda: warp_kernel.warp_homography_ref(frames, H, out_hw, scale),
+        err, bound_warp(frames, out_hw),
+        library=lambda: grid_sample_case(frames, H, out_hw, scale))]
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -2812,6 +3306,7 @@ def run_phases(dev, card: str) -> dict:
     t0 = time.perf_counter()
     paths["multi-stream"] = phase_multistream(film, handheld, dev)["launches"]
     game = {k: handheld[k] for k in ("frames", "moves", "truth")}
+    film_game = {k: film[k] for k in ("frames", "corners", "moves")}
     del film, handheld
     print(f"multi-stream phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -2853,6 +3348,28 @@ def run_phases(dev, card: str) -> dict:
     paths["runtime"] = runtime["launches"]
     lens_warps["runtime"] = runtime["lens_launches"]
     print(f"runtime phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    trn = phase_train(dev, card)
+    net = trn.pop("model")
+    tn = phase_neural(net, game, dev, card)
+    tv = phase_meta_voter(net, film_game, dev, card)
+    tb = phase_bgsub(film_game, dev, card)
+    paths.update({"train": trn["launches"], "neural": tn["launches"],
+                  "neural voter": tv["launches"], "bgsub": tb["launches"],
+                  "finders runtime": phase_runtime_finders(
+                      net, film_game, game, dev)["launches"]})
+    train_cases = phase_train_kernels(dev)
+    phase_kernel_times(train_cases, card)
+    warp_s = train_cases[0]["ms"] * trn["launches"]["warp"][0] / 1e3
+    print(f"train harvest: the warp's share of its {trn['harvest_s']:.2f} "
+          f"host seconds {warp_s / trn['harvest_s']:.2e} "
+          f"({trn['launches']['warp'][0]} launches of "
+          f"{train_cases[0]['ms']:.4f} ms; the rest renders on the host)",
+          flush=True)
+    cases += [_numbers_only(c) for c in train_cases]
+    del train_cases, net
+    print(f"finders and trainer phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     kernels = [_kernel_entry(name, source, replaces, cases, paths)
                for name, (source, replaces) in SOURCES.items()]
     kernels[0]["lens_launches_per_path"] = lens_warps
@@ -2882,7 +3399,20 @@ def run_phases(dev, card: str) -> dict:
                         "runtime_fps": tr["fps"]["runtime"],
                         "runtime_lens_fps": tr["fps"]["lens runtime"],
                         "runtime_threaded_fps": tr["fps"]["threaded"],
-                        "runtime_host_waits": tr["waits"]}}
+                        "runtime_host_waits": tr["waits"],
+                        "train_harvest_s": trn["harvest_s"],
+                        "train_step_ms": trn["step_ms"],
+                        "train_patches_s": trn["patches_s"],
+                        "train_peak_mib": trn["peak_mib"],
+                        "train_own_mib": trn["own_mib"],
+                        "train_accuracy": trn["accuracy"],
+                        "train_held_out_accuracy": trn["held_out"],
+                        "neural_c2_fps": tn["fps"],
+                        "c3_fps_without_voter": tv["fps"]["without"],
+                        "c3_fps_with_voter": tv["fps"]["with"],
+                        "bgsub_c3_fps": tb["fps"],
+                        "bgsub_ops_a_frame": tb["ops_a_frame"],
+                        "bgsub_host_waits": tb["waits"]}}
 
 
 def main() -> int:

@@ -298,7 +298,7 @@ def test_read_batch_refuses_what_is_not_ported():
     frames = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
     with pytest.raises(TypeError, match="Lens"):
         sf_meta.read_batch(state, frames, torch.zeros((4, 2)), lens=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(TypeError, match="PatchNet"):
         sf_meta.read_batch(state, frames, torch.zeros((4, 2)),
                            neural_params={})
 

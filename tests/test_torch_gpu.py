@@ -769,3 +769,146 @@ def test_runtime_steady_batch_reads_the_host_once():
     assert vm.board_finder._since_detect == 2
     assert vm.board_finder.corners_batch.shape == (16, 4, 2)
     assert vm.stones_finder.state.votes.is_cuda
+
+
+def _f32_grads(model, x, y):
+    """Per parameter, the gradient of the same net computed in float32
+    throughout, on the CPU."""
+    import torch.nn.functional as F
+
+    from camkifu_tpu_torch.models import neural
+
+    twin = neural.params_from_jax(neural.params_to_jax(model), device="cpu")
+    h = x.permute(0, 3, 1, 2)
+    for conv in (twin.Conv_0, twin.Conv_1):
+        h = F.avg_pool2d(F.relu(F.conv2d(h, conv.weight, conv.bias,
+                                         padding=1)), 2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    h = F.relu(F.linear(h, twin.Dense_0.weight, twin.Dense_0.bias))
+    F.cross_entropy(F.linear(h, twin.Dense_1.weight, twin.Dense_1.bias),
+                    y).backward()
+    return [p.grad for p in twin.parameters()]
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One AdamW step of PatchNet from the same parameters and batch on the
+    card (bf16 through cuDNN and cuBLAS, deterministic algorithms) and on
+    the CPU: losses within 1e-2 relative, and every gradient within 0.06
+    relative L2 of the float32 net's on both."""
+    from camkifu_tpu_torch.models import neural
+
+    dev = _device()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((1444, 16, 16, 3), np.float32))
+    y = torch.from_numpy(rng.integers(0, 3, 1444))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for d in ("cpu", dev):
+            model = neural.init_params(torch.Generator().manual_seed(0),
+                                       device=d)
+            opt = neural.make_optimizer(model)
+            loss, acc = neural.train_step(model, opt, x.to(d), y.to(d))
+            runs.append((float(loss), [p.grad.cpu() for p in
+                                       model.parameters()], model))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert runs[1][2].Conv_0.weight.is_cuda
+    assert runs[1][0] == pytest.approx(runs[0][0], rel=1e-2)
+    ref = _f32_grads(neural.init_params(torch.Generator().manual_seed(0),
+                                        device="cpu"), x, y)
+    for _, grads, _ in runs:
+        for g, r in zip(grads, ref):
+            assert float((g - r).norm() / r.norm()) <= 0.06
+
+
+def _trained_net(dev):
+    from camkifu_tpu_torch.models import neural
+
+    patches, labels = neural.harvest_patches(n_boards=6, frame_hw=(480, 854),
+                                             seed=3, device=dev)
+    model, acc = neural.train(patches, labels, epochs=4, batch=512)
+    assert acc > 0.97
+    return model
+
+
+def _still_game(moves=4, hw=(360, 640)):
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.utils.still import render_game, sample_moves
+
+    frames, corners = render_game(sample_moves(moves, seed=12),
+                                  cvconf.vote_window + 3, frame_hw=hw,
+                                  empty_leadin=5)
+    return frames[:32], corners
+
+
+def test_classify_and_bgsub_on_the_card_match_the_cpu():
+    """``classify_batch_neural`` (a net trained on the card) and
+    ``sf_bgsub.read_batch`` over 32 frames of a game, card against
+    ``device="cpu"``: labels equal (the net's where the CPU's top-2 margin
+    exceeds 0.02), confidences within 3e-3, the background within 1e-4
+    (the homography solves round differently), one warp launch each."""
+    from camkifu_tpu_torch.models import neural
+    from camkifu_tpu_torch.ops.warp import warp_batch_fixed
+    from camkifu_tpu_torch.stone import sf_bgsub, sf_neural
+
+    dev = _device()
+    model = _trained_net(dev)
+    frames, corners = _still_game()
+    fb, cs = torch.from_numpy(frames), torch.from_numpy(corners)
+    cpu_net = neural.params_from_jax(neural.params_to_jax(model), "cpu")
+    before = warp_kernel.launches
+    lab_d, conf_d = sf_neural.classify_batch_neural(model, fb.to(dev),
+                                                    cs.to(dev))
+    assert warp_kernel.launches == before + 1
+    lab_c, conf_c = sf_neural.classify_batch_neural(cpu_net, fb, cs)
+    probs = sf_neural.zone_probs(cpu_net, warp_batch_fixed(fb, cs,
+                                                           scale=1 / 255))
+    top2 = torch.sort(probs, dim=-1).values[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 0.02
+    assert torch.equal(lab_d.cpu()[clear], lab_c[clear])
+    assert float((conf_d.cpu() - conf_c).abs().max()) <= 3e-3
+
+    before = warp_kernel.launches
+    out_d = sf_bgsub.read_batch(sf_bgsub.init_state(), fb.to(dev), cs.to(dev),
+                                valid_count=30)
+    assert warp_kernel.launches == before + 1
+    out_c = sf_bgsub.read_batch(sf_bgsub.init_state(device="cpu"), fb, cs,
+                                valid_count=30)
+    for name in ("votes", "stable", "frame_count"):
+        assert torch.equal(getattr(out_d[0], name).cpu(),
+                           getattr(out_c[0], name)), name
+    assert float((out_d[0].bg.cpu() - out_c[0].bg).abs().max()) <= 1e-4
+    assert torch.equal(out_d[1].cpu(), out_c[1])
+    assert float((out_d[2].cpu() - out_c[2]).abs().max()) <= 1e-4
+    assert int(out_d[1][29].ne(0).sum()) >= 1
+
+
+def test_finders_with_the_net_never_wait():
+    """Warm ``sf_bgsub.read_batch``, ``classify_batch_neural`` and
+    ``sf_meta.read_batch`` with the neural voter, every synchronizing call
+    an error: there is none."""
+    from camkifu_tpu_torch.stone import sf_bgsub, sf_meta, sf_neural
+
+    dev = _device()
+    model = _trained_net(dev)
+    frames, corners = _still_game()
+    fb, cs = torch.from_numpy(frames).to(dev), torch.from_numpy(corners) \
+        .to(dev)
+    calls = (
+        lambda: sf_bgsub.read_batch(sf_bgsub.init_state(device=dev), fb, cs,
+                                    valid_count=30),
+        lambda: sf_neural.classify_batch_neural(model, fb, cs),
+        lambda: sf_meta.read_batch(sf_meta.init_state(device=dev), fb, cs,
+                                   neural_params=model, valid_count=30))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(o[1].is_cuda for o in (outs[0], outs[2]))

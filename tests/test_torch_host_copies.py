@@ -288,13 +288,10 @@ def test_controller_deferred_updates_match_the_reference():
 
 
 def test_finder_registries_match_the_reference():
-    """The reference's registries in its order, without the finders the
-    port has not ported (SfBgSub, SfNeural: ROADMAP Queue A item 8)."""
-    unported = {"SfBgSub", "SfNeural"}
+    """The reference's registries, every finder, in its order."""
     for ours, ref in ((cvconf.bfinders(), jcvconf.bfinders()),
                       (cvconf.sfinders(), jcvconf.sfinders())):
-        want = [(c.__name__, c.label) for c in ref
-                if c.__name__ not in unported]
+        want = [(c.__name__, c.label) for c in ref]
         assert [(c.__name__, c.label) for c in ours] == want
         assert all(c.__module__.startswith("camkifu_tpu_torch.")
                    for c in ours)

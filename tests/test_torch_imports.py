@@ -45,6 +45,10 @@ MODULES = [
     "camkifu_tpu_torch.stone.sf_contours",
     "camkifu_tpu_torch.stone.sf_meta",
     "camkifu_tpu_torch.stone.votes",
+    "camkifu_tpu_torch.stone.sf_bgsub",
+    "camkifu_tpu_torch.stone.sf_neural",
+    "camkifu_tpu_torch.models",
+    "camkifu_tpu_torch.models.neural",
     "camkifu_tpu_torch.parallel",
     "camkifu_tpu_torch.parallel.mesh",
     "camkifu_tpu_torch.ops.cuda._build",
@@ -64,18 +68,23 @@ def _python(code: str, cwd: str):
                           capture_output=True, text=True, timeout=120)
 
 
+#: What the port must not import: JAX and its libraries, cv2, and the JAX
+#: package.
+BLOCKED = ("jax", "flax", "optax", "orbax", "cv2", "camkifu_tpu")
+
+
 def test_port_imports_without_jax_or_cv2():
-    """With jax, cv2 and the whole JAX package blocked, every module of the
-    port imports, and none of them is loaded afterwards."""
+    """With jax, flax, optax, orbax, cv2 and the whole JAX package blocked,
+    every module of the port imports, and none of them is loaded
+    afterwards."""
     code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['cv2'] = None\n"
-            "sys.modules['camkifu_tpu'] = None\n"
+            f"for name in {BLOCKED!r}:\n"
+            "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if (m.split('.')[0] in"
-            " ('jax', 'cv2', 'camkifu_tpu')) and sys.modules[m] is not None]\n"
+            f" {BLOCKED!r}) and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = _python(code, ROOT)

@@ -391,12 +391,14 @@ def test_sgf_resume_seeds_the_scan(tmp_path):
 
 
 def test_sfmeta_refuses_a_neural_checkpoint(tmp_path, monkeypatch):
-    """No checkpoint: no neural voter. A checkpoint: an error naming Queue
-    A item 8, never a silent two-voter reading."""
-    monkeypatch.setattr(sf_meta, "NEURAL_CKPT", str(tmp_path / "none"))
+    """No checkpoint: no neural voter. The reference's orbax checkpoint
+    without one of the port's: an error saying how to convert it, never a
+    silent two-voter reading."""
+    monkeypatch.setattr(sf_meta, "NEURAL_CKPT", str(tmp_path / "none.npz"))
+    monkeypatch.setattr(sf_meta, "JAX_NEURAL_CKPT", str(tmp_path / "none"))
     assert sf_meta.SfMeta(_Host(None, device="cpu")).neural_params is None
-    monkeypatch.setattr(sf_meta, "NEURAL_CKPT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    monkeypatch.setattr(sf_meta, "JAX_NEURAL_CKPT", str(tmp_path))
+    with pytest.raises(RuntimeError, match="np.savez"):
         sf_meta.SfMeta(_Host(None, device="cpu"))
 
 

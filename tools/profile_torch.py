@@ -18,7 +18,11 @@ and the vision runtime (``runtime_batch``: ``VManagerSeq`` with
 ``BoardFinderAuto`` and ``SfMeta`` over chip_smoke.py's 720p handheld
 game, batches of 16), one batch at a time: the first anchor (detection
 and the lens calibration), steady tracked batches and a periodic
-re-anchor. For each stage it prints the host wall time per
+re-anchor; and this slice's finders and trainer: one AdamW step of
+``PatchNet`` on 1,444 patches (``neural.train_step``),
+``classify_batch_neural`` of the 128 1080p frames, c3's frames through
+``sf_meta.read_batch`` with the net as third voter and through
+``sf_bgsub.read_batch``. For each stage it prints the host wall time per
 call, the device kernel time, the device's busy share of the wall window,
 the number of kernels launched, the host's waits for the device (its
 synchronizing runtime calls, less the profiler's opening synchronize and
@@ -130,7 +134,25 @@ def main() -> int:
     _profile("classify128",
              lambda: pipeline.read_board_batch(frames, corners), 5,
              args.trace)
+
+    # This slice's net, untrained (its times do not depend on the weights).
+    from camkifu_tpu_torch.models import neural
+    from camkifu_tpu_torch.stone import sf_bgsub
+    from camkifu_tpu_torch.stone.sf_neural import classify_batch_neural
+
+    net = neural.init_params(torch.Generator().manual_seed(0))
+    _profile("neural_classify128",
+             lambda: classify_batch_neural(net, frames, corners), 5,
+             args.trace)
     del frames
+    gen = torch.Generator().manual_seed(1)
+    patches = torch.rand((1444, 16, 16, 3), generator=gen).cuda()
+    labels = torch.randint(0, 3, (1444,), generator=gen).cuda()
+    opt = neural.make_optimizer(net)
+    _profile("train_step1444",
+             lambda: neural.train_step(net, opt, patches, labels), 5,
+             args.trace)
+    del patches
 
     from camkifu_tpu_torch.config import cvconf
     from camkifu_tpu_torch.stone import sf_meta
@@ -145,6 +167,13 @@ def main() -> int:
     state = sf_meta.init_state(device=c3.device)
     _profile("c3_read_batch128",
              lambda: sf_meta.read_batch(state, c3, c3_corners), 3, args.trace)
+    _profile("c3_read_batch128_voter",
+             lambda: sf_meta.read_batch(state, c3, c3_corners,
+                                        neural_params=net), 3, args.trace)
+    bg_state = sf_bgsub.init_state()
+    _profile("c3_bgsub128",
+             lambda: sf_bgsub.read_batch(bg_state, c3, c3_corners), 3,
+             args.trace)
     del c3
 
     drift, _ = chip_smoke._drift_frames(torch.device("cuda", 0))
