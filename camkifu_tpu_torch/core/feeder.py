@@ -127,20 +127,25 @@ def _consume(dev: torch.Tensor, event) -> torch.Tensor:
     return dev
 
 
-def _read_padded(capture, batch: int):
-    """(frames padded to ``batch``, valid count, done) batches of
-    ``capture`` until it is done."""
+def _read_padded(capture, batch: int, stop: threading.Event):
+    """(frames padded to ``batch``, valid count, done, arrival times)
+    batches of ``capture`` until it is done or ``stop`` is set (a live
+    camera never is done). A live capture's arrival times are snapshotted
+    right after its read, before the next one overwrites them (None for
+    other captures)."""
     done = False
-    while not done:
+    while not done and not stop.is_set():
         frames, done = capture.read_batch(batch)
+        arrivals = getattr(capture, "last_batch_arrivals", None)
         frames, n = pad_batch(frames, batch)
         if n:
-            yield frames, n, done
+            yield frames, n, done, arrivals
 
 
 class DeviceFeeder:
-    """Iterates (device_frames, count, done, last host frame) batches,
-    decoded and copied to ``device`` one batch ahead of the consumer.
+    """Iterates (device_frames, count, done, last host frame, arrival
+    times or None) batches, decoded and copied to ``device`` one batch
+    ahead of the consumer.
 
     ``batches`` replaces the capture with an iterator of (frames, count)
     batches already padded (``prefetch_to_device``)."""
@@ -148,11 +153,12 @@ class DeviceFeeder:
     def __init__(self, capture, batch: int, depth: int = 2,
                  device="cuda", *, batches=None):
         self.device = torch.device(device)
-        self._source = _read_padded(capture, batch) if batches is None \
-            else ((frames, n, False) for frames, n in batches)
+        self._stop = threading.Event()
+        self._source = _read_padded(capture, batch, self._stop) \
+            if batches is None \
+            else ((frames, n, False, None) for frames, n in batches)
         self._ring = _side_ring(depth + 1, self.device)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
-        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._pump, daemon=True,
                                         name="device-feeder")
         self._thread.start()
@@ -171,13 +177,14 @@ class DeviceFeeder:
         err = None
         try:
             with on_device(self.device):
-                for frames, n, done in self._source:
+                for frames, n, done, arrivals in self._source:
                     if self._stop.is_set():
                         return
                     # Padded to the static batch size; the last real host
                     # frame rides along for the preview window.
                     dev, event = self._ring.upload(frames)
-                    self._put((dev, event, n, done, frames[n - 1]))
+                    self._put((dev, event, n, done, frames[n - 1],
+                               arrivals))
         except BaseException as exc:       # noqa: BLE001 — relayed, not eaten
             err = exc
         finally:
@@ -194,8 +201,8 @@ class DeviceFeeder:
             if isinstance(item, BaseException):
                 raise RuntimeError("video capture failed "
                                    "mid-stream") from item
-            dev, event, n, done, last_host = item
-            yield _consume(dev, event), n, done, last_host
+            dev, event, n, done, last_host, arrivals = item
+            yield _consume(dev, event), n, done, last_host, arrivals
 
     def close(self) -> None:
         self._stop.set()
@@ -212,7 +219,7 @@ def prefetch_to_device(batches, depth: int = 2, device="cuda"):
     consumer's compute. Yields (device_frames, count)."""
     feeder = DeviceFeeder(None, 0, depth, device, batches=batches)
     try:
-        for frames, n, _done, _last in feeder:
+        for frames, n, _done, _last, _arrivals in feeder:
             yield frames, n
     finally:
         feeder.close()

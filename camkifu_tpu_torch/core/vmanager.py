@@ -23,6 +23,7 @@ device, where the reference hands each a numpy batch to copy itself.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
@@ -223,7 +224,8 @@ class VManager(VManagerBase):
     def _work(self, stop: threading.Event) -> None:
         feeder = DeviceFeeder(self.capture, self.batch, device=self.device)
         try:
-            for frames, n, _done, last_host in self._relay_errors(feeder):
+            for frames, n, _done, last_host, arrivals in \
+                    self._relay_errors(feeder):
                 if stop.is_set():
                     break
                 bf, sf = self.board_finder, self.stones_finder
@@ -239,7 +241,17 @@ class VManager(VManagerBase):
                     self.error_to_gui(f"{type(exc).__name__}: {exc}")
                 bf._count(n)
                 sf._count(n)
-                self.stats.record(n, **sf.metadata)
+                meta = dict(sf.metadata)
+                if arrivals is not None and len(arrivals):
+                    # Live-mode pipeline latency: newest/oldest frame
+                    # arrival → this batch fully processed (finders done,
+                    # any resulting moves piped).
+                    now = time.perf_counter()
+                    meta["latency_newest_ms"] = round(
+                        (now - float(arrivals[-1])) * 1e3, 1)
+                    meta["latency_oldest_ms"] = round(
+                        (now - float(arrivals[0])) * 1e3, 1)
+                self.stats.record(n, **meta)
         finally:
             feeder.close()
             stop.set()

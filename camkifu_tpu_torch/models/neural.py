@@ -17,13 +17,12 @@ biases) and are trained by AdamW with optax's defaults. A checkpoint is an
 a numpy dump of the reference's parameters loads as it is
 (``params_from_jax`` / ``params_to_jax`` convert in memory).
 
-Departures: boards are drawn by ``utils/still.py`` (numpy; the reference's
-``synth`` needs cv2, which the card's machine lacks), without synth's wood
-palettes, lighting, blur, shadow, grain, vignetting, glare and shot noise;
-every random draw the reference makes is still made in its order, so each
-board's labels, perspective, noise seed and corner error are the
-reference's for the same seed. The checkpoint is an ``.npz``, not an orbax
-directory. ``--sharded`` (dp + tp over a mesh, ``parallel/train.py``) is not
+Boards are drawn by the port's ``utils/synth.py`` on the device, with the
+reference's calls: palettes cycled, and its lighting, blur, shadow, grain,
+vignetting, glare and shot noise drawn for each board in its order, so
+each board's labels, perspective, looks and corner error are the
+reference's for the same seed. Departure: the checkpoint is an ``.npz``,
+not an orbax directory. ``--sharded`` (dp + tp over a mesh, ``parallel/train.py``) is not
 ported.
 """
 
@@ -31,7 +30,6 @@ from __future__ import annotations
 
 import math
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -180,13 +178,15 @@ def loss_fn(model: PatchNet, patches: torch.Tensor, labels: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def _harvest_specs(n_boards: int, frame_hw, seed: int) -> list:
-    """Per board (labels (19, 19) int8, pinhole corners, noise seed,
-    corners to warp through), from the reference's draws in its order."""
-    from camkifu_tpu_torch.utils.still import default_corners
+    """Per board (labels (19, 19) int8, corners, ``synth.render_frame``'s
+    keyword arguments, corners to warp through), from the reference's
+    draws in its order."""
+    from camkifu_tpu_torch.utils import synth
 
     rng = np.random.default_rng(seed)
+    palettes = sorted(synth.PALETTES)
     specs = []
-    for _ in range(n_boards):
+    for b in range(n_boards):
         labels = np.zeros((19, 19), np.int8)
         n = int(rng.integers(0, 300))
         if n:
@@ -194,15 +194,20 @@ def _harvest_specs(n_boards: int, frame_hw, seed: int) -> list:
             labels.flat[idx[::2]] = 1
             labels.flat[idx[1::2]] = 2
         persp = float(rng.uniform(0.03, 0.30))
-        corners = default_corners(frame_hw, perspective=persp)
-        render_seed = int(rng.integers(1 << 30))
-        # The reference's light gradient, blur, shadow, wood grain,
-        # vignette, glare and shot noise: drawn, not drawn on the board.
-        rng.uniform(0.0, 0.35)
-        for choices in ([0.0, 0.0, 0.8, 1.4], [0.0, 0.0, 0.15, 0.25],
-                        [0.0, 0.08, 0.12], [0.0, 0.0, 0.22],
-                        [0.0, 0.0, 0.4, 0.6], [0.0, 0.0, 0.3, 0.5]):
-            rng.choice(choices)
+        corners = synth.default_corners(frame_hw, perspective=persp)
+        # Cycle wood palettes and sample the adversarial-eval degradation
+        # ranges, so the voter is not tuned to one board look or to clean
+        # studio frames.
+        render_kw = dict(
+            seed=int(rng.integers(1 << 30)),
+            stone_jitter=0.06, palette=palettes[b % len(palettes)],
+            light_gradient=float(rng.uniform(0.0, 0.35)),
+            blur_sigma=float(rng.choice([0.0, 0.0, 0.8, 1.4])),
+            shadow=float(rng.choice([0.0, 0.0, 0.15, 0.25])),
+            wood_texture=float(rng.choice([0.0, 0.08, 0.12])),
+            vignette=float(rng.choice([0.0, 0.0, 0.22])),
+            glare=float(rng.choice([0.0, 0.0, 0.4, 0.6])),
+            shot_noise=float(rng.choice([0.0, 0.0, 0.3, 0.5])))
         # Warp through PERTURBED corners (rotation up to ~1.2°, a few px
         # of shift): the runtime feeds the classifier canonicals with this
         # kind of residual, so train on it.
@@ -214,41 +219,37 @@ def _harvest_specs(n_boards: int, frame_hw, seed: int) -> list:
                             [np.sin(th), np.cos(th)]], np.float32)
             wc = (ctr + (corners - ctr) @ rot.T
                   + rng.normal(0.0, 1.5, (1, 2))).astype(np.float32)
-        specs.append((labels, corners, render_seed, wc))
+        specs.append((labels, corners, render_kw, wc))
     return specs
 
 
 def harvest_patches(n_boards: int = 40, frame_hw=(720, 1280), seed: int = 0,
-                    zone: int = cvconf.zone_size, device="cuda",
-                    workers: int = 1):
+                    zone: int = cvconf.zone_size, device="cuda"):
     """Render boards with known labels → (patches (N, z, z, 3) float32 in
     [0, 1], labels (N,) int64), N = 361 · n_boards, on ``device``.
 
-    Boards are rendered ``workers`` threads at a time and warped
-    ``HARVEST_CHUNK`` a launch, each through its own homography."""
+    Boards are rendered on the device and warped ``HARVEST_CHUNK`` a
+    launch, each through its own homography."""
     from camkifu_tpu_torch.core.feeder import to_device
     from camkifu_tpu_torch.ops.warp import (canonical_corners,
                                             homography_dlt, warp_frames)
     from camkifu_tpu_torch.ops.zones import extract_zones
-    from camkifu_tpu_torch.utils.still import render_still
+    from camkifu_tpu_torch.utils import synth
 
     specs = _harvest_specs(n_boards, frame_hw, seed)
     size = 19 * zone
     dev = torch.device(device)
     ideal = canonical_corners(19, zone, dev)
     all_patches = []
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        frames = pool.map(lambda s: render_still(
-            s[0], frame_hw=frame_hw, seed=s[2], corners=s[1])[0], specs)
-        for i in range(0, n_boards, HARVEST_CHUNK):
-            chunk = specs[i:i + HARVEST_CHUNK]
-            fb = np.stack([next(frames) for _ in chunk])
-            wc = to_device(np.stack([s[3] for s in chunk]), dev)
-            canon = warp_frames(to_device(fb, dev),
-                                homography_dlt(ideal, wc), (size, size),
-                                1.0 / 255.0)
-            all_patches.append(extract_zones(canon, 19, zone)
-                               .reshape(-1, zone, zone, 3))
+    for i in range(0, n_boards, HARVEST_CHUNK):
+        chunk = specs[i:i + HARVEST_CHUNK]
+        fb = torch.stack([synth.render_frame(s[0], s[1], frame_hw, device=dev,
+                                             **s[2])[0] for s in chunk])
+        wc = to_device(np.stack([s[3] for s in chunk]), dev)
+        canon = warp_frames(fb, homography_dlt(ideal, wc), (size, size),
+                            1.0 / 255.0)
+        all_patches.append(extract_zones(canon, 19, zone)
+                           .reshape(-1, zone, zone, 3))
     labels = np.concatenate([s[0].reshape(-1) for s in specs])
     return torch.cat(all_patches), to_device(labels.astype(np.int64), dev)
 
@@ -369,8 +370,7 @@ def main(argv=None, device="cuda") -> int:
             "ROADMAP Queue A item 8, not ported; train on one card")
 
     print(f"harvesting patches from {args.boards} boards…")
-    patches, labels = harvest_patches(n_boards=args.boards, device=device,
-                                      workers=os.cpu_count() or 1)
+    patches, labels = harvest_patches(n_boards=args.boards, device=device)
     if not args.batch:
         args.batch = int(np.clip(len(patches) // 12, 256, 2048))
     print(f"{len(patches)} patches; training (batch {args.batch})…")

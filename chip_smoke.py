@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``camkifu_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes the paths give it, then drives ten paths
+PyTorch version at the shapes the paths give it, then drives its paths
 once each, counting kernel launches per path:
 
 - the still path: one board detection on a 1080p still
@@ -45,7 +45,14 @@ once each, counting kernel launches per path:
   ``classify_batch_neural`` on 128 1080p frames, ``sf_meta.read_batch``
   with the trained net as its third voter and ``sf_bgsub.read_batch`` over
   the recorded game, bgsub's capture scenario, and the runtime with
-  ``SfBgSub``, ``SfNeural`` and ``SfMeta`` loading the trained checkpoint.
+  ``SfBgSub``, ``SfNeural`` and ``SfMeta`` loading the trained checkpoint;
+- the renderer, the accuracy harness and the live path:
+  ``utils.synth.render_frame`` at 720p and 1080p with each group of options
+  on the card against the CPU, ``render_game``'s frames/s;
+  ``filecheck.check`` on four ``synth:`` specs at the reference's PASS bar;
+  the gauntlet scenario rendered without its mp4 round trip through
+  ``run_runtime`` to its exact kifu; ``utils.latency.measure_live_latency``
+  (a paced camera into ``LiveCapture`` and the threaded ``VManager``).
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -232,8 +239,6 @@ TRAIN_EPOCHS = 6
 TRAIN_HELD_OUT = 8
 TRAIN_ACC = 0.97
 TRAIN_TIMED_FROM = 12
-#: The render threads of the harvest.
-TRAIN_RENDER_THREADS = 8
 #: The classifier at c2's shape (a board of its own seed): every board at
 #: least this agreement with its labels; card against CPU where the CPU's
 #: top-2 softmax margin exceeds NEURAL_MARGIN. The per-frame-corner branch
@@ -249,6 +254,50 @@ NEURAL_HANDHELD_FROM = 60
 #: The capture-and-removal scenario of tests/test_sf_bgsub.py, at its size.
 BGSUB_CAPTURE_HW = (360, 640)
 BGSUB_CAPTURE_BATCH = 13
+
+#: The renderer on the card against the CPU, sensor noise off (the shot
+#: noise is a draw too, so no group has it): each group of options at each
+#: size, corners bitwise, frames within a mean of
+#: SYNTH_TOL_MEAN DN with at most SYNTH_TOL_FRAC of the values more than
+#: 2 DN apart (float rounding in blurs and remaps; a shape's rim pixel).
+SYNTH_HWS = ((720, 1280), (1080, 1920))
+SYNTH_HARD = dict(stone_jitter=0.07, light_gradient=0.3, blur_sigma=1.2,
+                  shadow=0.18)
+SYNTH_GROUPS = {
+    "none": {},
+    "hard": SYNTH_HARD,
+    "t3 + clutter": dict(SYNTH_HARD, glare=0.5, clutter=3,
+                         wood_texture=0.10, vignette=0.22),
+    "lens + rolling shutter": dict(lens_k1=0.06, rolling_shutter=(4.0, 3.0)),
+    "hand": dict(hand=(640.0, 360.0, 0.8)),
+    "walnut": dict(palette="walnut"),
+}
+SYNTH_TOL_MEAN = 0.05
+SYNTH_TOL_FRAC = 1e-4
+#: render_game's frames/s: a 10-move game at 720p, 10 frames a move.
+SYNTH_GAME_MOVES = 10
+#: filecheck.check's specs (reference SGF None: the true corners; "auto":
+#: detection), each at the reference's PASS bar.
+CHECK_SPECS = (("synth:40:hard", None), ("synth:24:caps", "auto"),
+               ("synth:20:flicker", "auto"), ("synth:20:t3:bamboo", None))
+CHECK_BAR = 0.99
+#: The gauntlet without its mp4 round trip is read, by the reference's
+#: runtime as by the port's, with moves 9 and 11 of its kifu swapped
+#: (0-based 8 and 10: B (3, 3) committed after B (2, 4)): in both, a
+#: phantom W (6, 4) committed under the arm resting after move 7 holds
+#: W (16, 2) and B (3, 3) back until B (2, 4) is read too, and the two
+#: black stones then commit in row-major order. With the round trip B (2,
+#: 4) is read later and both read the exact kifu.
+#: tools/gauntlet_reference.py reproduces this on the CPU (--trace shows
+#: the commits). The gate is relaxed from the exact kifu to the
+#: reference's own codec-free reading: a port that read the exact kifu
+#: here would differ from the reference.
+GAUNTLET_REFERENCE_SWAP = (8, 10)
+#: The live harness: a paced 720p camera, batches of 8.
+LIVE_HW = (720, 1280)
+LIVE_FPS = 10.0
+LIVE_BATCH = 8
+LIVE_MOVES = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -2777,7 +2826,8 @@ def _max_rel_param_diff(a, b) -> float:
 
 def phase_train(dev, card: str) -> dict:
     """The trainer at ``cktrain``'s defaults on the card: the harvest of 48
-    720p boards (one warp launch a chunk of 16), 72 AdamW steps of 1,444
+    720p boards rendered by ``synth`` on the card (one warp launch a board,
+    and one a chunk of 16 to rectify them), 72 AdamW steps of 1,444
     patches, the accuracy gated on the last batch and on 8 boards of
     another seed; the steps timed by CUDA events, the peak device memory,
     and one step on the card against the same step on the CPU."""
@@ -2790,8 +2840,7 @@ def phase_train(dev, card: str) -> dict:
     t0 = time.perf_counter()
     _reset_counts()
     patches, labels = neural.harvest_patches(
-        n_boards=TRAIN_BOARDS, frame_hw=TRAIN_HW, seed=0, device=dev,
-        workers=TRAIN_RENDER_THREADS)
+        n_boards=TRAIN_BOARDS, frame_hw=TRAIN_HW, seed=0, device=dev)
     torch.cuda.synchronize()
     t_harvest = time.perf_counter() - t0
     batch = int(np.clip(len(patches) // 12, 256, 2048))
@@ -2805,8 +2854,7 @@ def phase_train(dev, card: str) -> dict:
     own = peak - held_before / 2 ** 20
     counts = _read_counts()
     held_p, held_l = neural.harvest_patches(
-        n_boards=TRAIN_HELD_OUT, frame_hw=TRAIN_HW, seed=1, device=dev,
-        workers=TRAIN_RENDER_THREADS)
+        n_boards=TRAIN_HELD_OUT, frame_hw=TRAIN_HW, seed=1, device=dev)
     with torch.no_grad():
         held = float((model(held_p).argmax(-1) == held_l).float().mean())
     steps = TRAIN_EPOCHS * (len(patches) // batch)
@@ -3192,12 +3240,12 @@ def phase_train_kernels(dev) -> list[dict]:
     from camkifu_tpu_torch.models import neural
     from camkifu_tpu_torch.ops.cuda import warp_kernel
     from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt
-    from camkifu_tpu_torch.utils.still import render_still
+    from camkifu_tpu_torch.utils import synth
 
     specs = neural._harvest_specs(neural.HARVEST_CHUNK, TRAIN_HW, 0)
-    frames = torch.from_numpy(np.stack([
-        render_still(s[0], TRAIN_HW, seed=s[2], corners=s[1])[0]
-        for s in specs])).to(dev)
+    frames = torch.stack([synth.render_frame(s[0], s[1], TRAIN_HW,
+                                             device=dev, **s[2])[0]
+                          for s in specs])
     wc = torch.from_numpy(np.stack([s[3] for s in specs])).to(dev)
     H = homography_dlt(canonical_corners(device=dev), wc).contiguous()
     out_hw, scale = (304, 304), 1.0 / 255.0
@@ -3209,6 +3257,207 @@ def phase_train_kernels(dev) -> list[dict]:
         lambda: warp_kernel.warp_homography_ref(frames, H, out_hw, scale),
         err, bound_warp(frames, out_hw),
         library=lambda: grid_sample_case(frames, H, out_hw, scale))]
+
+
+def phase_synth(dev, card: str) -> dict:
+    """``synth.render_frame`` on the card against the CPU at 720p and
+    1080p, each group of options, noise off (corners bitwise, frames within
+    SYNTH_TOL_*); the render path's warp launches; ``render_game``'s 720p
+    frames/s (host clock, synchronized at the end) with no options, the
+    'hard' ones and the t3 ones; a 720p frame's device ops and host
+    waits."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.utils import synth
+    from tools.profile_torch import ops_and_waits
+
+    t0 = time.perf_counter()
+    labels = _labels()
+    _reset_counts()
+    worst = (0.0, 0.0)
+    for hw in SYNTH_HWS:
+        for name, kw in SYNTH_GROUPS.items():
+            ours, corners = synth.render_frame(labels, frame_hw=hw, noise=0,
+                                               seed=2, device=dev, **kw)
+            ref, ref_corners = synth.render_frame(labels, frame_hw=hw,
+                                                  noise=0, seed=2,
+                                                  device="cpu", **kw)
+            d = (ours.cpu().to(torch.int64) - ref.to(torch.int64)).abs()
+            mean, frac = float(d.float().mean()), float((d > 2).float()
+                                                        .mean())
+            worst = (max(worst[0], mean), max(worst[1], frac))
+            _require(np.array_equal(corners, ref_corners),
+                     f"synth: corners of '{name}' at {hw} differ between "
+                     f"the card and the CPU")
+            _require(ours.shape == (*hw, 3) and ours.dtype == torch.uint8
+                     and mean < SYNTH_TOL_MEAN and frac <= SYNTH_TOL_FRAC,
+                     f"synth: '{name}' at {hw}: card against CPU mean "
+                     f"{mean:.4f} DN, {frac:.2e} of values > 2 DN apart")
+    counts = _read_counts()
+    _require(counts["warp"][0] == len(SYNTH_HWS) * len(SYNTH_GROUPS),
+             f"synth: {counts['warp'][0]} warp launches for "
+             f"{len(SYNTH_HWS) * len(SYNTH_GROUPS)} renders on the card")
+    print(f"synth: {len(SYNTH_GROUPS)} option groups at "
+          f"{', '.join(f'{h}p' for h, _ in SYNTH_HWS)} on the card against "
+          f"the CPU: corners bitwise, worst mean {worst[0]:.4f} DN, worst "
+          f"share > 2 DN {worst[1]:.2e}; launches {counts}", flush=True)
+    moves = synth.sample_moves(SYNTH_GAME_MOVES, seed=7)
+    fps = {}
+    for name, kw in (("none", {}), ("hard", SYNTH_HARD),
+                     ("t3", dict(SYNTH_HARD, glare=0.5, shot_noise=0.4))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = sum(1 for _ in synth.render_game(
+            moves, frames_per_move=10, frame_hw=(720, 1280), seed=7,
+            empty_leadin=6, device=dev, **kw))
+        torch.cuda.synchronize()
+        fps[name] = n / (time.perf_counter() - t1)
+    def hard_frame(seed):
+        return synth.render_frame(labels, frame_hw=(720, 1280), seed=seed,
+                                  jitter_seed=7, device=dev, **SYNTH_HARD)
+
+    hard_frame(3)                       # the board's paint, then cached
+    ops, waits = ops_and_waits(lambda: hard_frame(4))
+    print(f"synth times on {card}: render_game 720p, {n} frames: "
+          + ", ".join(f"{k} {v:.1f} frames/s" for k, v in fps.items())
+          + f" (host clock); a 'hard' 720p frame of a painted board {ops} "
+          f"device ops, {waits} host waits (phase "
+          f"{time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return {"launches": counts, "fps": fps, "ops": ops, "waits": waits}
+
+
+def phase_synth_kernels(dev) -> list[dict]:
+    """The warp at the render path's shapes: the canonical board padded
+    to 458² × 3 u8, through the inverse homography of the default view,
+    onto a 720p and a 1080p frame (scale 1: ``synth`` rounds it to u8)."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.utils import synth
+
+    canon = synth.render_canonical(_labels(), device=dev)
+    padded = torch.nn.functional.pad(canon, (0, 0, 1, 1, 1, 1))[None] \
+        .contiguous()
+    size = canon.shape[0]
+    src = np.array([[12, 12], [size - 12, 12], [size - 12, size - 12],
+                    [12, size - 12]], np.float32)
+    cases = []
+    for hw in SYNTH_HWS:
+        m = synth._perspective(src, synth.default_corners(hw))
+        shift = np.array([[1.0, 0, 1], [0, 1, 1], [0, 0, 1]])
+        H = torch.from_numpy((shift @ np.linalg.inv(m)).astype(np.float32)
+                             ).to(dev)
+        err = _check_warp(padded, H, hw, f" (render {hw[0]}p)", scale=1.0)
+        cases.append(_case(
+            "warp", f"{tuple(padded.shape)} u8 → {hw[1]}×{hw[0]}×3, scale 1",
+            f"synth render {hw[0]}p",
+            lambda hw=hw, H=H: warp_kernel.warp_homography(padded, H, hw),
+            lambda hw=hw, H=H: warp_kernel.warp_homography_ref(padded, H,
+                                                               hw),
+            err, bound_warp(padded, hw),
+            library=lambda hw=hw, H=H: grid_sample_case(padded, H, hw, 1.0)))
+    return cases
+
+
+def phase_check(dev, card: str) -> dict:
+    """``filecheck.check`` on each of CHECK_SPECS on the card, each at the
+    reference's PASS bar; frames/s is the harness's own (render, copy,
+    read and move extraction)."""
+    from camkifu_tpu_torch import filecheck
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = {}
+    for spec, sgf in CHECK_SPECS:
+        rep = filecheck.check(spec, sgf, device=dev)
+        out[spec] = rep
+        print(f"check {spec}{' auto' if sgf == 'auto' else ''}: agreement "
+              f"{rep['agreement']:.4f}, good {rep['good']}, wrong "
+              f"{rep['wrong']}, missing {rep['missing']}, extra "
+              f"{rep['extra']} of {rep['ref_moves']}; {rep['frames']} "
+              f"frames at {rep['fps']:.1f} frames/s on {card}; diff "
+              f"{rep['diff'][:3]}", flush=True)
+        _require(rep["agreement"] >= CHECK_BAR,
+                 f"check {spec}: agreement {rep['agreement']:.4f} under the "
+                 f"reference's PASS bar {CHECK_BAR}")
+    counts = _read_counts()
+    print(f"check: launches {counts} (phase {time.perf_counter() - t0:.1f} "
+          f"s)", flush=True)
+    _require_launched(counts, "check")
+    return {"launches": counts, "reports": out}
+
+
+def phase_gauntlet(dev) -> dict:
+    """``synth.gauntlet_scenario``'s game and camera without its mp4 round
+    trip, rendered on the card, through ``run_runtime(batch=16)``: the
+    kifu the reference's runtime reads on the same codec-free scenario
+    (GAUNTLET_REFERENCE_SWAP), every move of it, its agreement with the
+    truth and its first differing move printed."""
+    from itertools import zip_longest
+
+    from camkifu_tpu_torch import filecheck
+    from camkifu_tpu_torch.core.gamesync import score_moves
+    from camkifu_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    moves, factory = synth.gauntlet_scenario(19, seed=11, device=dev)
+    frames = [f.cpu().numpy() for f in factory()]
+    t_render = time.perf_counter() - t0
+    detected, stats = filecheck.run_runtime(frames, batch=16, device=dev)
+    counts = _read_counts()
+    rep = score_moves(detected, moves)
+    first = next(((k, w, g) for k, (w, g) in enumerate(zip_longest(
+        _moves_of(moves), _moves_of(detected))) if w != g), None)
+    reference = _moves_of(moves)
+    i, j = GAUNTLET_REFERENCE_SWAP
+    reference[i], reference[j] = reference[j], reference[i]
+    print(f"gauntlet (no mp4 round trip): {len(frames)} 720p frames "
+          f"rendered in {t_render:.2f} s, runtime {stats['fps']:.1f} "
+          f"frames/s; agreement {rep['agreement']:.4f} ({rep['good']}/"
+          f"{rep['ref_moves']}, {rep['wrong']} wrong, {rep['missing']} "
+          f"missing, {rep['extra']} extra); first differing move "
+          f"{first}; the reference's codec-free reading (moves {i + 1} and "
+          f"{j + 1} swapped) {'matched' if _moves_of(detected) == reference else 'NOT MATCHED'}"
+          f"; launches {counts}", flush=True)
+    _require(_moves_of(detected) == reference,
+             "gauntlet: the kifu is not the reference's codec-free reading")
+    _require_launched(counts, "gauntlet")
+    return {"launches": counts, "fps": stats["fps"], "render_s": t_render,
+            "frames": len(frames)}
+
+
+def phase_live(dev, card: str) -> dict:
+    """``utils.latency.measure_live_latency`` on the card: a paced camera
+    at LIVE_FPS into ``LiveCapture`` and the threaded ``VManager``, gated
+    as ``tests/test_live_latency.py``: every move detected, every latency
+    past 0.8 × the vote-commit floor."""
+    from camkifu_tpu_torch.utils.latency import measure_live_latency
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    rep = measure_live_latency(n_moves=LIVE_MOVES, fps=LIVE_FPS,
+                               frame_hw=LIVE_HW, batch=LIVE_BATCH, seed=3,
+                               timeout_s=180.0, device=dev)
+    counts = _read_counts()
+    print(f"live on {card}: {LIVE_HW[0]}p at {LIVE_FPS} frames/s, batch "
+          f"{LIVE_BATCH}: detected {rep['detected']}/{rep['expected']}, "
+          f"frame→SGF p50 {rep.get('p50_s')} s, p99 {rep.get('p99_s')} s "
+          f"(of {len(rep['latencies_s'])} moves: about the largest) "
+          f"(floors: batch fill {rep['floor_batch_fill_s']} s, vote commit "
+          f"{rep['floor_vote_commit_s']} s), latencies {rep['latencies_s']}"
+          f", warm-up {rep['warmup_s']} s; launches {counts} (phase "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    _require(rep["detected"] == rep["expected"],
+             "live: not every move was detected")
+    floor = rep["floor_vote_commit_s"]
+    _require(all(v > floor * 0.8 for v in rep["latencies_s"]),
+             "live: a latency under 0.8 × the vote-commit floor")
+    _require_launched(counts, "live")
+    return {"launches": counts, "report": rep}
 
 
 SOURCES = {
@@ -3361,15 +3610,29 @@ def run_phases(dev, card: str) -> dict:
     train_cases = phase_train_kernels(dev)
     phase_kernel_times(train_cases, card)
     warp_s = train_cases[0]["ms"] * trn["launches"]["warp"][0] / 1e3
-    print(f"train harvest: the warp's share of its {trn['harvest_s']:.2f} "
-          f"host seconds {warp_s / trn['harvest_s']:.2e} "
-          f"({trn['launches']['warp'][0]} launches of "
-          f"{train_cases[0]['ms']:.4f} ms; the rest renders on the host)",
+    print(f"train harvest: the rectifying warp's share of its "
+          f"{trn['harvest_s']:.2f} host seconds "
+          f"{warp_s / trn['harvest_s']:.2e} (at most "
+          f"{trn['launches']['warp'][0]} launches of "
+          f"{train_cases[0]['ms']:.4f} ms, the renders' own included)",
           flush=True)
     cases += [_numbers_only(c) for c in train_cases]
     del train_cases, net
     print(f"finders and trainer phases {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    ts = phase_synth(dev, card)
+    synth_cases = phase_synth_kernels(dev)
+    phase_kernel_times(synth_cases, card)
+    cases += [_numbers_only(c) for c in synth_cases]
+    del synth_cases
+    tc = phase_check(dev, card)
+    tg = phase_gauntlet(dev)
+    tlv = phase_live(dev, card)
+    paths.update({"synth": ts["launches"], "check": tc["launches"],
+                  "gauntlet": tg["launches"], "live": tlv["launches"]})
+    print(f"synth, check, gauntlet and live phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     kernels = [_kernel_entry(name, source, replaces, cases, paths)
                for name, (source, replaces) in SOURCES.items()]
     kernels[0]["lens_launches_per_path"] = lens_warps
@@ -3412,7 +3675,18 @@ def run_phases(dev, card: str) -> dict:
                         "c3_fps_with_voter": tv["fps"]["with"],
                         "bgsub_c3_fps": tb["fps"],
                         "bgsub_ops_a_frame": tb["ops_a_frame"],
-                        "bgsub_host_waits": tb["waits"]}}
+                        "bgsub_host_waits": tb["waits"],
+                        "synth_game_fps_720p": ts["fps"],
+                        "synth_ops_a_frame": ts["ops"],
+                        "check_fps": {k: v["fps"]
+                                      for k, v in tc["reports"].items()},
+                        "gauntlet_runtime_fps": tg["fps"],
+                        "live_p50_s": tlv["report"].get("p50_s"),
+                        "live_p99_s": tlv["report"].get("p99_s"),
+                        "live_floor_batch_fill_s":
+                            tlv["report"]["floor_batch_fill_s"],
+                        "live_floor_vote_commit_s":
+                            tlv["report"]["floor_vote_commit_s"]}}
 
 
 def main() -> int:

@@ -708,7 +708,7 @@ def test_device_feeder_batches_equal_the_frames_bitwise():
                           device=dev)
     kept, meta = [], []
     try:
-        for dev_frames, n, done, last in feeder:
+        for dev_frames, n, done, last, _arrivals in feeder:
             torch.cuda._sleep(20_000_000)          # the consumer is busy
             kept.append(dev_frames.clone())        # queued behind the spin
             meta.append((n, done, last))
@@ -912,3 +912,57 @@ def test_finders_with_the_net_never_wait():
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert all(o[1].is_cuda for o in (outs[0], outs[2]))
+
+
+SYNTH_GROUPS = [
+    {},
+    dict(stone_jitter=0.07, light_gradient=0.3, blur_sigma=1.2, shadow=0.18),
+    dict(glare=0.5, clutter=3, wood_texture=0.1, vignette=0.22),
+    dict(lens_k1=0.06, rolling_shutter=(4.0, 3.0)),
+    dict(hand=(640.0, 360.0, 0.8), palette="walnut", white_balance=0.05,
+         motion_blur=(4.0, 1.5)),
+]
+
+
+@pytest.mark.parametrize("kw", SYNTH_GROUPS)
+def test_synth_render_on_the_card_matches_the_cpu(kw):
+    """``synth.render_frame`` at 720p on the card against the same call on
+    the CPU, sensor noise off (shot noise is a draw too): corners bitwise,
+    frames within a mean of 0.05 DN with at most 1e-4 of the values more
+    than 2 DN apart (float rounding in blurs and remaps, a shape's rim
+    pixel), one warp launch a frame."""
+    from camkifu_tpu_torch.utils import synth
+
+    dev = _device()
+    labels = np.zeros((19, 19), np.int8)
+    idx = np.random.default_rng(4).choice(361, 150, replace=False)
+    labels.flat[idx[:75]], labels.flat[idx[75:]] = 1, 2
+    before = warp_kernel.launches
+    ours, corners = synth.render_frame(labels, frame_hw=(720, 1280),
+                                       noise=0, seed=2, device=dev, **kw)
+    assert warp_kernel.launches == before + 1
+    ref, ref_corners = synth.render_frame(labels, frame_hw=(720, 1280),
+                                          noise=0, seed=2, device="cpu",
+                                          **kw)
+    assert np.array_equal(corners, ref_corners)
+    d = (ours.cpu().to(torch.int64) - ref.to(torch.int64)).abs()
+    assert float(d.float().mean()) < 0.05
+    assert float((d > 2).float().mean()) <= 1e-4
+
+
+def test_check_and_live_latency_on_the_card():
+    """``filecheck.check("synth:3")`` on the card reads every move; the
+    live harness at 360×640, 8 fps, detects every move with each latency
+    past 0.8 × the vote-commit floor (``tests/test_live_latency.py``'s
+    gates)."""
+    from camkifu_tpu_torch import filecheck
+    from camkifu_tpu_torch.utils.latency import measure_live_latency
+
+    dev = _device()
+    rep = filecheck.check("synth:3", None, device=dev)
+    assert rep["agreement"] == 1.0, rep
+    rep = measure_live_latency(n_moves=3, fps=8.0, frame_hw=(360, 640),
+                               batch=8, seed=5, timeout_s=120.0, device=dev)
+    assert rep["detected"] == rep["expected"], rep
+    floor = rep["floor_vote_commit_s"]
+    assert all(v > floor * 0.8 for v in rep["latencies_s"]), rep

@@ -58,6 +58,8 @@ MODULES = [
     "camkifu_tpu_torch.ops.cuda.hysteresis_kernel",
     "camkifu_tpu_torch.ops.edges",
     "camkifu_tpu_torch.utils.still",
+    "camkifu_tpu_torch.utils.synth",
+    "camkifu_tpu_torch.utils.latency",
     "chip_smoke",
 ]
 

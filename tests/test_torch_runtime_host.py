@@ -485,12 +485,14 @@ def test_feeders_match_the_reference_on_the_cpu():
     ours = feeder.DeviceFeeder(capture.ArrayCapture(frames), 8,
                                device="cpu")
     ref = jfeeder.DeviceFeeder(jcapture.ArrayCapture(frames), 8)
-    got = [(b.numpy(), n, done, last) for b, n, done, last in ours]
-    want = [(np.asarray(b), n, done, last) for b, n, done, last, _ in ref]
+    got = [(b.numpy(), n, done, last, a) for b, n, done, last, a in ours]
+    want = [(np.asarray(b), n, done, last, a)
+            for b, n, done, last, a in ref]
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert np.array_equal(g[0], w[0]) and g[1:3] == w[1:3]
         assert np.array_equal(g[3], w[3])
+        assert g[4] is None and w[4] is None
     batches = [capture.pad_batch(np.stack(frames[i:i + 8]), 8)
                for i in range(0, 21, 8)]
     got = [(b.numpy(), n) for b, n in
