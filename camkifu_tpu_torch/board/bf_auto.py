@@ -69,6 +69,21 @@ def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x[i.reshape(1)][0]
 
 
+def _angdiff(a, b):
+    """Angular distance on the line-orientation circle (period π)."""
+    d = torch.abs(a - b) % np.pi
+    return torch.minimum(d, np.pi - d)
+
+
+def _line_intersection(t1, r1, t2, r2):
+    """Intersection of x·cosθ + y·sinθ = ρ pairs → (x, y)."""
+    det = torch.cos(t1) * torch.sin(t2) - torch.sin(t1) * torch.cos(t2)
+    det = torch.where(torch.abs(det) < 1e-9, 1e-9, det)
+    x = (r1 * torch.sin(t2) - r2 * torch.sin(t1)) / det
+    y = (r2 * torch.cos(t1) - r1 * torch.cos(t2)) / det
+    return x, y
+
+
 def _order_quad(pts_xy: torch.Tensor) -> torch.Tensor:
     """Order 4 points (..., 4, 2) tl/tr/br/bl (image y grows downward)."""
     ctr = pts_xy.mean(dim=-2, keepdim=True)
@@ -238,6 +253,32 @@ def _coarse_from_mag(mag: torch.Tensor, mag_c: torch.Tensor | None):
     return quad, score
 
 
+def _coarse_quad(gray_small: torch.Tensor,
+                 chroma_small: torch.Tensor | None = None):
+    """Edge-density board-region quadrilateral on the detection-res gray
+    (res, res) or grays (B, res, res) → (quad (4, 2) or (B, 4, 2) in
+    detection-res coordinates, score () or (B,)); score < ~0.1 means "no
+    board found".
+
+    ``chroma_small`` (same shape, an R−B opponent channel) adds a second
+    edge map, union-merged after per-channel normalization (dark woods
+    can vanish in luma against the table and stay apart in chroma). Every
+    map goes through one edge and one hysteresis launch on the card, and
+    ``_coarse_from_mag`` through one Hough launch.
+    """
+    grays = gray_small[None] if gray_small.ndim == 2 else gray_small
+    b = grays.shape[0]
+    if chroma_small is None:
+        quad, score = _coarse_from_mag(edge_map_batch(grays), None)
+    else:
+        mags = edge_map_batch(torch.cat([grays,
+                                         chroma_small.reshape(grays.shape)]))
+        quad, score = _coarse_from_mag(mags[:b], mags[b:])
+    if gray_small.ndim == 2:
+        return quad[0], score[0]
+    return quad, score
+
+
 def _col(v):
     """A per-frame value with a trailing axis to broadcast against a
     frame's teeth or bins; Python numbers pass through."""
@@ -296,6 +337,22 @@ def _comb_scores(profile: torch.Tensor, gsize: int, n_offsets: int = 64,
     teeth_score = (a_teeth @ profile).reshape(n_offsets, n_spacings)
     gap_score = (a_gaps @ profile).reshape(n_offsets, n_spacings)
     return offsets, spacings, teeth_score, gap_score, valid
+
+
+def _comb_fit(profile: torch.Tensor, gsize: int, n_offsets: int = 64,
+              n_spacings: int = 48, gap_weight: float = 0.0):
+    """Fit a gsize-tooth even comb to a 1D edge-energy profile under one
+    gap-weight scoring → (offset, spacing, gap-penalized quality), 0-d
+    tensors; the quality is the common metric (teeth − gaps) of the
+    chosen comb, whatever weight chose it."""
+    offsets, spacings, teeth_score, gap_score, valid = _comb_scores(
+        profile, gsize, n_offsets, n_spacings)
+    scores = torch.where(valid, teeth_score - gap_weight * gap_score,
+                         float("-inf"))
+    flat = torch.argmax(scores)
+    quality = _at((teeth_score - gap_score).reshape(-1), flat)
+    return (_at(offsets, flat // n_spacings),
+            _at(spacings, flat % n_spacings), quality)
 
 
 def _snap_to_peaks(profile: torch.Tensor, teeth: torch.Tensor, pitch,
@@ -536,16 +593,62 @@ def _split_profiles(rect: torch.Tensor, gsize: int):
     return tuple(p[0::2] + p[1::2])
 
 
+def _comb_variants(H: torch.Tensor, col_profile: torch.Tensor,
+                   row_profile: torch.Tensor, ox, sx, oy, sy, gsize: int):
+    """The comb (ox, sx) × (oy, sy) translated by {−1, 0, +1} teeth along
+    each axis → (corners (9, 4, 2) in frame coordinates through ``H``,
+    gap-penalized qualities (9,)); the (0, 0) comb is index 4. The comb's
+    basins are one tooth apart and no in-basin score tells "19 teeth on
+    the grid" from "18 and one on the slab edge", so callers race all
+    nine."""
+    span = gsize - 1.0
+    shifts = (-1.0, 0.0, 1.0)
+    qxs = [_comb_quality(col_profile, ox + d * sx, sx, gsize) for d in shifts]
+    qys = [_comb_quality(row_profile, oy + d * sy, sy, gsize) for d in shifts]
+    var_corners, var_q = [], []
+    for i, dx in enumerate(shifts):
+        for j, dy in enumerate(shifts):
+            x0, y0 = ox + dx * sx, oy + dy * sy
+            x1, y1 = x0 + span * sx, y0 + span * sy
+            rc = torch.stack([torch.stack([x0, y0]), torch.stack([x1, y0]),
+                              torch.stack([x1, y1]), torch.stack([x0, y1])])
+            var_corners.append(apply_homography(H, rc))
+            var_q.append(qxs[i] + qys[j])
+    return torch.stack(var_corners), torch.stack(var_q)
+
+
+def _fit_combs(H: torch.Tensor, col_profile: torch.Tensor,
+               row_profile: torch.Tensor, gsize: int, gap_weight: float):
+    """Comb-fit both axes on precomputed profiles under one gap weight →
+    (corners (4, 2) in frame coordinates, comb quality, variant corners
+    (9, 4, 2), variant qualities (9,)) (``_comb_variants``)."""
+    ox, sx, qx = _comb_fit(col_profile, gsize, gap_weight=gap_weight)
+    oy, sy, qy = _comb_fit(row_profile, gsize, gap_weight=gap_weight)
+    ox, sx = _snap_teeth(col_profile, ox, sx, gsize)
+    oy, sy = _snap_teeth(row_profile, oy, sy, gsize)
+    var_corners, var_q = _comb_variants(H, col_profile, row_profile, ox, sx,
+                                        oy, sy, gsize)
+    return var_corners[4], qx + qy, var_corners, var_q
+
+
+def _refine_grid(gray: torch.Tensor, quad: torch.Tensor, gsize: int,
+                 margin: float = 0.08, res: int = REFINE_RES,
+                 gap_weight: float = 1.0):
+    """Rectify by ``quad`` (+outward margin) and comb-fit the grid lines:
+    ``_rect_profiles`` followed by ``_fit_combs``."""
+    H, col_profile, row_profile = _rect_profiles(gray, quad, gsize, margin,
+                                                 res)
+    return _fit_combs(H, col_profile, row_profile, gsize, gap_weight)
+
+
 def _fit_combs_multi(H: torch.Tensor, col_profile: torch.Tensor,
                      row_profile: torch.Tensor, gsize: int,
                      gap_weights=(1.0, 0.0)):
     """Comb-fit both axes under several gap-weight scorings in one pass →
     (seeds (G, 4, 2), variant corners (G*9, 4, 2), variant qualities
-    (G*9,)); the 9 variants per scoring are the ±1-tooth-shifted basins."""
+    (G*9,)); the 9 variants per scoring are ``_comb_variants``."""
     grid_x = _comb_scores(col_profile, gsize)
     grid_y = _comb_scores(row_profile, gsize)
-    span = gsize - 1.0
-    shifts = (-1.0, 0.0, 1.0)
     seeds, var_corners, var_q = [], [], []
     for gw in gap_weights:
         def pick(grid):
@@ -558,22 +661,12 @@ def _fit_combs_multi(H: torch.Tensor, col_profile: torch.Tensor,
         oy, sy = pick(grid_y)
         ox, sx = _snap_teeth(col_profile, ox, sx, gsize)
         oy, sy = _snap_teeth(row_profile, oy, sy, gsize)
-        qxs = [_comb_quality(col_profile, ox + d * sx, sx, gsize)
-               for d in shifts]
-        qys = [_comb_quality(row_profile, oy + d * sy, sy, gsize)
-               for d in shifts]
-        for i, dx in enumerate(shifts):
-            for j, dy in enumerate(shifts):
-                x0, y0 = ox + dx * sx, oy + dy * sy
-                x1, y1 = x0 + span * sx, y0 + span * sy
-                rc = torch.stack([torch.stack([x0, y0]),
-                                  torch.stack([x1, y0]),
-                                  torch.stack([x1, y1]),
-                                  torch.stack([x0, y1])])
-                var_corners.append(apply_homography(H, rc))
-                var_q.append(qxs[i] + qys[j])
-        seeds.append(var_corners[-5])          # this scoring's (0, 0) comb
-    return torch.stack(seeds), torch.stack(var_corners), torch.stack(var_q)
+        vc, vq = _comb_variants(H, col_profile, row_profile, ox, sx, oy, sy,
+                                gsize)
+        seeds.append(vc[4])                    # this scoring's (0, 0) comb
+        var_corners.append(vc)
+        var_q.append(vq)
+    return torch.stack(seeds), torch.cat(var_corners), torch.cat(var_q)
 
 
 def _side_insets(corners: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
@@ -718,18 +811,18 @@ def _detect_prepare_batch(frames: torch.Tensor, res: int):
     quads (B, 4, 2) frame px, scores (B,)).
 
     Luma and chroma of the whole batch are resized by the same weight
-    matrices, their 2B edge maps are one edge-kernel launch on the card,
-    and ``_coarse_from_mag`` takes every frame at once (one Hough launch).
+    matrices, and ``_coarse_quad`` takes every frame at once: its 2B edge
+    maps are one edge-kernel launch on the card, and one Hough launch
+    follows.
     """
-    b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    h, w = frames.shape[1], frames.shape[2]
     grays = rgb_to_gray_u8(frames)
     fscale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
     smalls = resize_bilinear(grays.to(torch.float32) / 255.0, (res, res))
     chromas = resize_bilinear(
         (frames[..., 0].to(torch.float32) - frames[..., 2].to(torch.float32))
         * fscale, (res, res))
-    mags = edge_map_batch(torch.cat([smalls, chromas]))
-    quads, scores = _coarse_from_mag(mags[:b], mags[b:])
+    quads, scores = _coarse_quad(smalls, chromas)
     scale = _f32([(w - 1) / (res - 1), (h - 1) / (res - 1)], frames.device)
     return grays, quads * scale, scores
 

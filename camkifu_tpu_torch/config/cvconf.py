@@ -17,6 +17,11 @@ from camkifu_tpu_torch.config import guiconf
 zone_size = 16
 canonical_size = guiconf.gsize * zone_size      # 304 for gsize=19
 
+
+def canonical_size_for(gsize: int, zone: int = zone_size) -> int:
+    return gsize * zone
+
+
 #: Frames per batch in film (recorded video) mode.
 frame_batch = 32
 

@@ -14,9 +14,9 @@ capture wrapper's film/live disciplines live in core.capture.
 
 Copied from camkifu_tpu/core/vmanager.py, with a ``device`` (the card
 unless the caller asks for the CPU). Each batch is copied to the device
-once, by the manager: ``VManagerSeq`` through a ring of pinned buffers on
-the caller's stream, ``VManager`` through ``DeviceFeeder`` on a side
-stream. Both finders receive the same (B, H, W, 3) uint8 tensor on the
+once, by the manager: ``read_batch`` (``VManagerSeq``, a finder's own
+``execute`` loop) through a ring of pinned buffers on the caller's
+stream, ``VManager`` through ``DeviceFeeder`` on a side stream. Both finders receive the same (B, H, W, 3) uint8 tensor on the
 device, where the reference hands each a numpy batch to copy itself.
 """
 
@@ -80,6 +80,23 @@ class VManagerBase:
             self.controller.stones_finder = self.stones_finder
             self.controller.board_finder = self.board_finder
 
+    # -- frame source for VidProcessors -------------------------------------
+
+    _ring: PinnedRing | None = None
+
+    def read_batch(self):
+        """→ (frames (batch, H, W, 3) uint8 on the manager's device — padded
+        to the static batch size and copied once, through a ring of pinned
+        buffers on the caller's stream —, valid_count, done)."""
+        self.init_capture()
+        frames, done = self.capture.read_batch(self.batch)
+        frames, n = pad_batch(frames, self.batch)
+        if n:
+            if self._ring is None:
+                self._ring = PinnedRing(2, self.device)
+            frames, _ = self._ring.upload(frames)
+        return frames, n, done
+
     def error_to_gui(self, message: str) -> None:
         if self.controller is not None:
             self.controller._notify("error", message)
@@ -142,20 +159,14 @@ class VManagerSeq(VManagerBase):
     """Synchronous manager: processes the whole source in the caller's
     thread. The deterministic harness (filecheck, tests) runs on this."""
 
-    _ring: PinnedRing | None = None
-
     def run(self, max_batches: int | None = None) -> None:
         self.init_capture()
         if self.board_finder is None:
             self.instantiate_finders()
-        if self._ring is None:
-            self._ring = PinnedRing(2, self.device)
         batches = 0
         while max_batches is None or batches < max_batches:
-            frames, done = self.capture.read_batch(self.batch)
-            frames, n = pad_batch(frames, self.batch)
+            frames, n, done = self.read_batch()
             if n:
-                frames, _ = self._ring.upload(frames)
                 self.board_finder._doframe(frames, n)
                 self.stones_finder._doframe(frames, n)
                 self.board_finder._count(n)

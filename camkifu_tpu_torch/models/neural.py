@@ -22,8 +22,9 @@ reference's calls: palettes cycled, and its lighting, blur, shadow, grain,
 vignetting, glare and shot noise drawn for each board in its order, so
 each board's labels, perspective, looks and corner error are the
 reference's for the same seed. Departure: the checkpoint is an ``.npz``,
-not an orbax directory. ``--sharded`` (dp + tp over a mesh, ``parallel/train.py``) is not
-ported.
+not an orbax directory. ``--sharded`` trains data + model parallel
+(``parallel/train.py``): a world of one on a card, or one process a card
+(or a CPU process, ``--device cpu``, gloo) under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -133,23 +134,32 @@ def params_from_jax(tree: dict, device="cuda") -> PatchNet:
             for k, v in want.items()):
         raise ValueError(f"not a PatchNet parameter tree: want "
                          f"{{'params': {want}}}")
+    for name, leaves in want.items():
+        for leaf, shape in leaves.items():
+            got = np.shape(params[name][leaf])
+            if got != shape:
+                raise ValueError(f"params/{name}/{leaf} has shape {got}, "
+                                 f"want {shape}")
     model = _empty(cvconf.zone_size, "cpu")
+    copy_leaves(model, params)
+    return model.to(device)
+
+
+def copy_leaves(model: nn.Module, params: dict) -> None:
+    """Copy flax-layout leaves ``{layer: {"kernel", "bias"}}`` into the
+    layers of ``model`` of the same names (conv kernels HWIO → OIHW,
+    dense kernels (in, out) → (out, in)), as float32."""
     with torch.no_grad():
-        for name, leaves in want.items():
+        for name, leaves in params.items():
             layer = getattr(model, name)
-            for leaf, shape in leaves.items():
-                a = np.array(params[name][leaf], np.float32)
-                if a.shape != shape:
-                    raise ValueError(f"params/{name}/{leaf} has shape "
-                                     f"{a.shape}, want {shape}")
-                t = torch.from_numpy(a)
+            for leaf, a in leaves.items():
+                t = torch.from_numpy(np.array(a, np.float32))
                 if leaf == "bias":
                     layer.bias.copy_(t)
                 elif t.ndim == 4:                      # HWIO → OIHW
                     layer.weight.copy_(t.permute(3, 2, 0, 1))
                 else:                                  # (in, out) → (out, in)
                     layer.weight.copy_(t.T)
-    return model.to(device)
 
 
 def params_to_jax(model: PatchNet) -> dict:
@@ -255,7 +265,7 @@ def harvest_patches(n_boards: int = 40, frame_hw=(720, 1280), seed: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# Single-card training (multi-card dp + tp: not ported, ROADMAP item 8).
+# Single-process training (dp + tp over processes: parallel/train.py).
 # ---------------------------------------------------------------------------
 
 def make_optimizer(model: PatchNet, lr: float = 3e-3) -> torch.optim.AdamW:
@@ -362,22 +372,41 @@ def main(argv=None, device="cuda") -> int:
                          "small harvests still get enough optimizer steps")
     ap.add_argument("--out", default=DEFAULT_CKPT)
     ap.add_argument("--sharded", action="store_true",
-                    help="dp+tp training over several devices (not ported)")
+                    help="dp+tp training over the processes of a group "
+                         "(torchrun), or a world of one")
+    ap.add_argument("--device", default=device,
+                    help="cuda (NCCL when sharded) or cpu (gloo)")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (parallel/train.py: dp + tp over several cards) is "
-            "ROADMAP Queue A item 8, not ported; train on one card")
+    if not args.sharded:
+        return _train_and_save(args, args.device, 0)
+    from camkifu_tpu_torch.parallel import train as ptrain
 
-    print(f"harvesting patches from {args.boards} boards…")
+    with ptrain.process_group(args.device) as dev:
+        return _train_and_save(args, dev, torch.distributed.get_rank())
+
+
+def _train_and_save(args, device, rank: int) -> int:
+    """``main``'s harvest, training and save; with ``--sharded`` every
+    rank of the group runs it and rank 0 reports and saves."""
+    say = print if rank == 0 else (lambda *_: None)
+    say(f"harvesting patches from {args.boards} boards…")
     patches, labels = harvest_patches(n_boards=args.boards, device=device)
     if not args.batch:
         args.batch = int(np.clip(len(patches) // 12, 256, 2048))
-    print(f"{len(patches)} patches; training (batch {args.batch})…")
-    model, acc = train(patches, labels, epochs=args.epochs,
-                       batch=args.batch, log=print)
-    save_params(model, args.out)
-    print(f"accuracy {acc:.4f}; checkpoint saved to {args.out}")
+    say(f"{len(patches)} patches; training (batch {args.batch})…")
+    if args.sharded:
+        from camkifu_tpu_torch.parallel import train as ptrain
+
+        model, acc = ptrain.train_sharded(patches, labels,
+                                          epochs=args.epochs,
+                                          batch=args.batch, log=say)
+        model = params_from_jax(model.full_tree(), device)
+    else:
+        model, acc = train(patches, labels, epochs=args.epochs,
+                           batch=args.batch, log=say)
+    if rank == 0:
+        save_params(model, args.out)
+    say(f"accuracy {acc:.4f}; checkpoint saved to {args.out}")
     return 0
 
 

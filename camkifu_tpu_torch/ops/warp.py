@@ -207,6 +207,19 @@ def warp_to_canonical(frame: torch.Tensor, corners: torch.Tensor,
     return warp_batch_fixed(frame[None], corners, gsize, zone, lens=lens)[0]
 
 
+def warp_batch(frames: torch.Tensor, corners: torch.Tensor,
+               gsize: int = guiconf.gsize,
+               zone: int = cvconf.zone_size,
+               lens: Lens | None = None) -> torch.Tensor:
+    """(B, H, W, C) frames + (B, 4, 2) per-frame corners (raw frame
+    positions) → (B, S, S, C) in the frame's scale: each frame through its
+    own homography, one warp launch for the batch on the card."""
+    size = gsize * zone
+    H = homography_dlt(canonical_corners(gsize, zone, corners.device),
+                       undistort_pts(lens, corners.to(torch.float32)))
+    return warp_frames(frames, H, (size, size), lens=lens)
+
+
 def _shifted_crop(src: torch.Tensor, origin: torch.Tensor | None, size: int,
                   offset: torch.Tensor) -> torch.Tensor:
     """Crop a ``size``² window of each (B, Hs, Ws, C) image at its own

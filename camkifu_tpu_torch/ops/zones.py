@@ -90,6 +90,18 @@ def median_u8(x: torch.Tensor) -> torch.Tensor:
     return v.to(torch.float32) / 255.0
 
 
+def median(x: torch.Tensor) -> torch.Tensor:
+    """The median of the last axis as ``jnp.median`` takes it: of an even
+    count the two middle order statistics averaged, (a + b) · 0.5
+    (``torch.median`` returns the lower one, ``torch.quantile`` lerps,
+    which differs from JAX by an ulp in some draws)."""
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    if n % 2:
+        return s[..., n // 2]
+    return (s[..., n // 2 - 1] + s[..., n // 2]) * 0.5
+
+
 def _grid_median3(x: torch.Tensor, grid_dim: int = 0) -> torch.Tensor:
     """3×3 neighborhood median over the (g, g) grid dims starting at
     ``grid_dim``, edge-padded. Nine values: an odd count, so
@@ -146,3 +158,30 @@ def zone_stats(canonical: torch.Tensor, gsize: int = guiconf.gsize,
         "disc_med_luma": median_u8(luma_flat[..., disc_idx]),
         "disc_med_rgb": median_u8(flat[..., disc_idx, :].transpose(-1, -2)),
     }
+
+
+def zone_features(canonical: torch.Tensor, gsize: int = guiconf.gsize,
+                  zone: int = cvconf.zone_size) -> torch.Tensor:
+    """Per-intersection feature vectors of canonical image(s) (..., S, S,
+    C) → (..., g, g, 7) float32:
+      0..2  disc-weighted mean R, G, B (where a stone would sit)
+      3..5  background R, G, B: the median of the zone's corner pixels,
+            then the 3×3 neighbourhood median over the grid
+      6     disc-weighted luma standard deviation (texture)
+    """
+    lead = canonical.shape[:-3]
+    zones = extract_zones(canonical, gsize, zone)        # (..., g,g,z,z,C)
+    mask, bg_idx, _ = _zone_constants(gsize, zone, canonical.device)
+    inv = 1.0 / max(float(disc_mask(zone).sum()), 1.0)
+    mean_rgb = torch.einsum("...ghyxc,yx->...ghc", zones, mask) * inv
+    c = zones.shape[-1]
+    flat = zones.reshape(*lead, gsize, gsize, zone * zone, c)
+    idx = bg_idx.expand(*lead, *bg_idx.shape)
+    bg_px = torch.gather(flat, -2, idx[..., None].expand(*idx.shape, c))
+    bg_rgb = _grid_median3(median(bg_px.transpose(-1, -2)), len(lead))
+    luma = rgb_to_gray(zones)                            # (..., g,g,z,z)
+    mean_luma = torch.einsum("...ghyx,yx->...gh", luma, mask) * inv
+    var_luma = torch.einsum("...ghyx,yx->...gh", luma ** 2, mask) * inv \
+        - mean_luma ** 2
+    std_luma = torch.sqrt(torch.clamp(var_luma, min=0.0))
+    return torch.cat([mean_rgb, bg_rgb, std_luma[..., None]], dim=-1)

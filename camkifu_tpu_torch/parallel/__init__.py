@@ -1,2 +1,2 @@
-"""Several independent video streams at once (port of
-camkifu_tpu.parallel)."""
+"""Several independent video streams at once (``mesh``) and training over
+several processes (``train``): port of camkifu_tpu.parallel."""

@@ -26,7 +26,8 @@ from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.ops.color import rgb_to_gray
 from camkifu_tpu_torch.ops.warp import warp_batch_chunked, warp_batch_fixed
-from camkifu_tpu_torch.ops.zones import _zone_constants, extract_zones
+from camkifu_tpu_torch.ops.zones import _zone_constants, extract_zones, \
+    median as disc_median
 from camkifu_tpu_torch.stone.votes import vote_update, zone_motion_gate
 
 EMPTY, BLACK, WHITE = 0, 1, 2
@@ -64,20 +65,9 @@ def init_state(gsize: int = guiconf.gsize, zone: int = cvconf.zone_size,
     )
 
 
-def disc_median(x: torch.Tensor) -> torch.Tensor:
-    """The median of the last axis as ``jnp.median`` takes it: of an even
-    count the two middle order statistics averaged, (a + b) · 0.5
-    (``torch.median`` returns the lower one, ``torch.quantile`` lerps)."""
-    n = x.shape[-1]
-    s = torch.sort(x, dim=-1).values
-    if n % 2:
-        return s[..., n // 2]
-    return (s[..., n // 2 - 1] + s[..., n // 2]) * 0.5
-
-
 def _step(votes, stable, bg, luma, small, zone_calm, disc_idx, gsize: int,
           zone: int, cfg: cvconf.VisionConfig):
-    """The reference's ``step_frame`` after its motion gate: one frame's
+    """``step_frame`` after its motion gate: one frame's
     luma (S, S) and pooled luma against the carried background →
     (votes, stable, bg, out_conf)."""
     # The first frame initializes the background. Known limitation (the
@@ -118,6 +108,25 @@ def _step(votes, stable, bg, luma, small, zone_calm, disc_idx, gsize: int,
     rate = BG_EMA * pixel_mask
     bg = bg * (1.0 - rate) + luma * rate
     return votes, stable, bg, out_conf
+
+
+def step_frame(state: BgSubState, canonical: torch.Tensor,
+               gsize: int = guiconf.gsize, zone: int = cvconf.zone_size,
+               cfg: cvconf.VisionConfig = cvconf.DEFAULT):
+    """One frame of the scan: canonical (S, S, 3) in [0, 1] → (state,
+    (labels (g, g) int8, conf (g, g), agitation ())). A loop of it over
+    frames gives ``_scan_canonical``'s outputs, bitwise."""
+    luma = rgb_to_gray(canonical)                            # (S, S)
+    small = background.downsample_luma(luma, GATE_FACTOR)
+    prev = torch.where(state.prev[:1, :1] < 0, small, state.prev)
+    zone_calm, agitation = zone_motion_gate(small, prev, gsize)
+    disc_idx = _zone_constants(gsize, zone, canonical.device)[2]
+    votes, stable, bg, out_conf = _step(
+        state.votes, state.stable, state.bg, luma, small, zone_calm,
+        disc_idx, gsize, zone, cfg)
+    new_state = BgSubState(votes=votes, stable=stable, bg=bg, prev=small,
+                           frame_count=state.frame_count + 1)
+    return new_state, (stable, out_conf, agitation)
 
 
 def read_batch(state: BgSubState, frames: torch.Tensor,

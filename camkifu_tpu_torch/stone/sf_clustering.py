@@ -43,12 +43,22 @@ def _constants(device):
                          device=device))
 
 
+def classify_features(feats: torch.Tensor, iters: int = 8):
+    """Classify all intersections from zone features (..., g, g, 7)
+    (``ops.zones.zone_features``, values scaled to [0, 1]) → (labels
+    (..., g, g) int8 ∈ {E, B, W}, confidence (..., g, g) in [0, 1])."""
+    g = feats.shape[-2]
+    contrast = feats[..., 0:3] - feats[..., 3:6]
+    return _classify_contrast(
+        contrast.reshape(*contrast.shape[:-3], g * g, 3), g, iters)
+
+
 def _classify_contrast(contrast: torch.Tensor, g: int, iters: int = 8):
     """k-means classification of (..., g·g, 3) per-channel local contrast
     → (labels (..., g, g) int8, confidence (..., g, g))."""
     lead = contrast.shape[:-2]
     init, luma, rank_to_label = _constants(contrast.device)
-    cents, raw_labels, _ = kmeans(contrast, init, k=3, iters=iters)
+    cents, raw_labels, _ = kmeans(contrast, k=3, iters=iters, init=init)
     raw = raw_labels.long()
 
     # Order clusters by luminance of their contrast: most negative = black.

@@ -299,6 +299,18 @@ LIVE_FPS = 10.0
 LIVE_BATCH = 8
 LIVE_MOVES = 4
 
+#: The reference's device functions that no other path calls: the
+#: flat frames of the board-free departure, the noise frame on which both
+#: packages find no board, and ρ's tolerance card against CPU (px).
+C1_FLAT_HWS = ((720, 1280), (480, 854))
+C1_NOISE_HW = (480, 854)
+HOUGH_RHO_TOL = 1e-3
+
+#: ``train_sharded`` at world size 1 against single-card ``train``: the
+#: first steps' losses, relative.
+SHARDED_STEPS = 3
+SHARDED_LOSS_RTOL = 1e-5
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -2909,7 +2921,8 @@ def phase_train(dev, card: str) -> dict:
     return {"model": model, "launches": counts, "harvest_s": t_harvest,
             "step_ms": step_ms, "patches_s": batch / step_ms * 1e3,
             "peak_mib": peak, "own_mib": own, "accuracy": acc,
-            "held_out": held}
+            "held_out": held, "patches": patches, "labels": labels,
+            "batch": batch}
 
 
 def _margin_clear(model, canon, margin: float):
@@ -3460,6 +3473,304 @@ def phase_live(dev, card: str) -> dict:
     return {"launches": counts, "report": rep}
 
 
+def _counted(fn):
+    """``fn()`` with the kernel launches it made → (result, counts)."""
+    import torch
+
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read_counts()
+
+
+def _same_peaks(card, cpu) -> tuple[bool, bool, float]:
+    """``hough_lines`` outputs (theta, rho, votes) of the card and the CPU:
+    (every card peak has a CPU peak of the same θ with ρ within
+    HOUGH_RHO_TOL and votes within HOUGH_ATOL and back, the order is the
+    same, the largest ρ difference of peaks matched in order)."""
+    th, rho, v = (x.cpu().numpy() for x in card)
+    th_c, rho_c, v_c = (x.numpy() for x in cpu)
+
+    def covered(a, b):
+        return all(any(a[0][i] == b[0][j]
+                       and abs(a[1][i] - b[1][j]) <= HOUGH_RHO_TOL
+                       and abs(a[2][i] - b[2][j]) <= HOUGH_ATOL
+                       for j in range(len(b[0]))) for i in range(len(a[0])))
+
+    same = covered((th, rho, v), (th_c, rho_c, v_c)) \
+        and covered((th_c, rho_c, v_c), (th, rho, v))
+    ordered = bool((th == th_c).all())
+    return same, ordered, float(abs(rho - rho_c).max())
+
+
+def phase_device_fns(film: dict, dev, card: str) -> dict:
+    """The reference's device functions that no other path calls, each
+    once on the card against the CPU (the plain versions), with its kernel
+    launches counted: ``hough_lines`` on the 1080p still's edge map at res
+    256 and on tests/test_bf_auto.py's two drawn lines; ``warp_batch`` of
+    128 drifting 1080p frames, each through its own corners (bitwise to
+    its plain version, one warp launch); ``_coarse_quad`` on the still at
+    res 256 (one edge, hysteresis and Hough launch); ``zone_features`` +
+    ``classify_features`` on c2's canonical images; a loop of
+    ``sf_bgsub.step_frame`` over the film game against ``read_batch``; and
+    the board-free frames: the card's stage-1 score on the flat frames
+    (printed: the departure), no board on noise. Then each timed."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops import hough, warp, zones
+    from camkifu_tpu_torch.ops.cuda import warp_kernel
+    from camkifu_tpu_torch.ops.edges import edge_map
+    from camkifu_tpu_torch.stone import sf_bgsub, sf_clustering
+    from camkifu_tpu_torch.utils.still import render_still
+
+    t0 = time.perf_counter()
+    frame, corners = render_still(_labels(), frame_hw=FRAME_HW, seed=0)
+    f = torch.from_numpy(frame).to(dev)
+    small = bf_auto.resize_bilinear(
+        bf_auto.rgb_to_gray_u8(f).float() / 255.0, (256, 256))
+    chroma = bf_auto.resize_bilinear(
+        (f[..., 0].float() - f[..., 2].float()) / 255.0, (256, 256))
+    mag = edge_map(small)
+    lines = torch.zeros((128, 128), device=dev)
+    lines[40, :] = 1.0
+    lines[:, 100] = 1.0
+    paths, report = {}, []
+
+    # hough_lines: one Hough launch a call.
+    (h_still, h_lines), c = _counted(lambda: (
+        hough.hough_lines(mag), hough.hough_lines(lines, k=512)))
+    paths["hough_lines"] = c
+    for name, got, cpu in (
+            ("still", h_still, hough.hough_lines(mag.cpu())),
+            ("two lines", h_lines, hough.hough_lines(lines.cpu(), k=512))):
+        same, ordered, d_rho = _same_peaks(got, cpu)
+        report.append(f"hough_lines {name}: peaks "
+                      f"{'equal' if same else 'DIFFER'} card against CPU "
+                      f"(order {'equal' if ordered else 'differs'}, ρ "
+                      f"{d_rho:.3g} px)")
+        _require(same, f"device fns: hough_lines on the {name} differs "
+                 f"card against CPU")
+    _require(c["hough"][0] == 2, "device fns: hough_lines took other than "
+             "one Hough launch a call")
+
+    # warp_batch: 128 frames, 128 homographies, one launch.
+    drift, truth = _drift_frames(dev)
+    reps = C4_BATCH // REDETECT_BATCH
+    frames = torch.cat([drift] * reps)
+    per_frame = torch.from_numpy(np.concatenate([truth] * reps)).to(dev)
+    del drift
+    canon, c = _counted(lambda: warp.warp_batch(frames, per_frame))
+    paths["warp_batch"] = c
+    H = warp.homography_dlt(warp.canonical_corners(device=dev),
+                            per_frame).contiguous()
+    plain = warp_kernel.warp_homography_ref(frames, H, (304, 304))
+    same = torch.equal(canon, plain)
+    warp_err = float((canon - plain).abs().max())
+    report.append(f"warp_batch {tuple(frames.shape)} → "
+                  f"{tuple(canon.shape)}: "
+                  f"{'bitwise equal' if same else 'NOT equal'} to its plain "
+                  f"version, {c['warp'][0]} warp launch")
+    del plain
+    _require(same, "device fns: warp_batch differs from its plain version")
+    _require(c["warp"][0] == 1,
+             "device fns: warp_batch took other than one warp launch")
+
+    # _coarse_quad: one edge launch for both maps, one Hough launch.
+    (quad, score), c = _counted(lambda: bf_auto._coarse_quad(small, chroma))
+    paths["_coarse_quad"] = c
+    quad_c, score_c = bf_auto._coarse_quad(small.cpu(), chroma.cpu())
+    d_quad = float((quad.cpu() - quad_c).abs().max())
+    report.append(f"_coarse_quad: score {float(score):.4f} (CPU "
+                  f"{float(score_c):.4f}), quad within {d_quad:.4f} px of "
+                  f"the CPU's (tol {TOL_CPU_PX}), launches "
+                  f"{ {k: v[0] for k, v in c.items()} }")
+    _require(d_quad <= TOL_CPU_PX, "device fns: _coarse_quad card and CPU "
+             "quads disagree")
+    _require(abs(float(score) - float(score_c)) <= 1e-3 and float(score)
+             > 0.1, "device fns: _coarse_quad score")
+    _require(all(c[k][0] == 1 for k in ("edge", "hysteresis", "hough")),
+             "device fns: _coarse_quad took other than one edge, "
+             "hysteresis and Hough launch")
+
+    # zone_features + classify_features on c2's canonical images.
+    c2 = f[None].expand(BATCH, *f.shape).contiguous()
+    corners_dev = torch.from_numpy(corners).to(dev)
+
+    def classify(x):
+        return sf_clustering.classify_features(zones.zone_features(x))
+
+    canon2 = warp.warp_batch_fixed(c2, corners_dev, scale=1.0 / 255.0)
+    (lab, _), c = _counted(lambda: classify(canon2))
+    paths["zone_features"] = c
+    lab_c, _ = classify(canon2[:8].cpu())
+    lab = lab.cpu().numpy()
+    right = int((lab == _labels()[None]).all(axis=(1, 2)).sum())
+    eq = np.array_equal(lab[:8], lab_c.numpy())
+    report.append(f"zone_features + classify_features on {BATCH} canonical "
+                  f"images: {right}/{BATCH} boards right, labels "
+                  f"{'equal' if eq else 'DIFFER'} card against CPU")
+    _require(right == BATCH and eq, "device fns: classify_features")
+
+    # step_frame over the film game against read_batch.
+    film_dev = torch.from_numpy(film["frames"]).to(dev)
+    fc = torch.from_numpy(film["corners"]).to(dev)
+    state0 = sf_bgsub.init_state(device=dev)
+
+    def loop():
+        canon_f = warp.warp_batch_fixed(film_dev, fc, scale=1.0 / 255.0)
+        state, out = state0, []
+        for x in canon_f:
+            state, (lab_f, _, _) = sf_bgsub.step_frame(state, x)
+            out.append(lab_f)
+        return state, torch.stack(out)
+
+    (st_loop, lab_loop), c = _counted(loop)
+    paths["step_frame"] = c
+    st_read, lab_read, _, _ = sf_bgsub.read_batch(state0, film_dev, fc)
+    eq = torch.equal(lab_loop, lab_read)
+    d_bg = float((st_loop.bg - st_read.bg).abs().max())
+    report_film = _scored(lab_loop.cpu().numpy(), film["moves"])
+    report.append(f"step_frame over the film game ({len(film_dev)} frames): "
+                  f"labels {'equal' if eq else 'DIFFER'} to read_batch's, "
+                  f"background within {d_bg:.3g}, agreement "
+                  f"{report_film['agreement']}")
+    _require(eq, "device fns: a step_frame loop differs from read_batch")
+
+    # The board-free frames (ROADMAP Queue C1: a departure).
+    flat = []
+    for hw in C1_FLAT_HWS:
+        fl = torch.full(hw + (3,), 90, dtype=torch.uint8, device=dev)
+        score = float(bf_auto._detect_prepare(fl, 256)[2])
+        flat.append(f"{hw[0]}x{hw[1]} {score:.4f}")
+    rng = np.random.default_rng(0)
+    noise = np.clip(90 + rng.normal(0, 8, C1_NOISE_HW + (3,)), 0,
+                    255).astype(np.uint8)
+    g = bf_auto.infer_gsize(torch.from_numpy(noise).to(dev))
+    report.append(f"board-free frames: the card's stage-1 score on flat "
+                  f"frames {', '.join(flat)} (the CPU reads 0 at 720p: "
+                  f"rounding dust, a departure); noise → infer_gsize {g}")
+    _require(g == (0, {9: -1.0, 13: -1.0, 19: -1.0}),
+             "device fns: a board found in noise")
+    print("device fns: " + "; ".join(report) + f" (phase "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # Times, CUDA events after a warm-up, median [min, max] of 20 calls.
+    t0 = time.perf_counter()
+    runs = {
+        "hough_lines (still map)": _cuda_ms_runs(
+            lambda: hough.hough_lines(mag), reps=20),
+        f"warp_batch {C4_BATCH} x {FRAME_HW[0]}p": _cuda_ms_runs(
+            lambda: warp.warp_batch(frames, per_frame), reps=20),
+        "_coarse_quad (still, 256²)": _cuda_ms_runs(
+            lambda: bf_auto._coarse_quad(small, chroma), reps=20),
+        f"zone_features + classify_features x {BATCH}": _cuda_ms_runs(
+            lambda: classify(canon2), reps=20),
+        "step_frame": _cuda_ms_runs(
+            lambda: sf_bgsub.step_frame(state0, canon2[0]), reps=20),
+    }
+    ms = {k: _median(v) for k, v in runs.items()}
+    print(f"device fns times on {card}, median [min, max] of 20 calls: "
+          + ", ".join(f"{k} {ms[k]:.4f} ms [{v[0]:.4f}, {v[-1]:.4f}]"
+                      for k, v in runs.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    cases = [_case(
+        "warp", f"{tuple(frames.shape)} u8 → 304²×3, {C4_BATCH} "
+        f"homographies", "warp_batch",
+        lambda: warp_kernel.warp_homography(frames, H, (304, 304)),
+        lambda: warp_kernel.warp_homography_ref(frames, H, (304, 304)),
+        warp_err, bound_warp(frames, (304, 304)),
+        library=lambda: grid_sample_case(frames, H, (304, 304), 1.0))]
+    return {"paths": paths, "ms": ms, "cases": cases}
+
+
+def phase_train_sharded(patches, labels, batch: int, step_ms: float, dev,
+                        card: str) -> dict:
+    """``parallel.train`` at world size 1 on the card through NCCL (a
+    group on a free localhost port, destroyed on the way out whatever
+    happens): its first steps' losses against single-card ``train_step``'s
+    from the same seed and order, then ``train_sharded`` over the
+    trainer's harvest at ``cktrain``'s defaults, gated at TRAIN_ACC; each
+    step timed by CUDA events beside ``train_step``'s."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.core.feeder import to_device
+    from camkifu_tpu_torch.models import neural
+    from camkifu_tpu_torch.parallel import train as ptrain
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    with ptrain.process_group(dev) as rank_dev:
+        _require(torch.distributed.get_backend() == "nccl",
+                 "train sharded: the group is not NCCL")
+        mesh = ptrain.make_mesh(1, model_parallel=2)
+        order = to_device(np.random.default_rng(0).permutation(
+            len(patches)), dev)
+        m = neural.init_params(torch.Generator().manual_seed(0), device=dev)
+        opt = neural.make_optimizer(m)
+        sm = ptrain.shard_model(neural.init_params(
+            torch.Generator().manual_seed(0), device=dev), mesh)
+        step = ptrain.make_train_step(mesh, neural.make_optimizer(sm), sm)
+        single, sharded = [], []
+        for i in range(SHARDED_STEPS):
+            sel = order[i * batch:(i + 1) * batch]
+            single.append(float(neural.train_step(m, opt, patches[sel],
+                                                  labels[sel])[0]))
+            sharded.append(float(step(patches[sel], labels[sel])[0]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(sharded, single))
+
+        t1 = time.perf_counter()
+        model, acc = ptrain.train_sharded(patches, labels, mesh=mesh,
+                                          epochs=TRAIN_EPOCHS, batch=batch)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t1
+
+        # The schedule again, each step between CUDA events.
+        sm = ptrain.shard_model(neural.init_params(
+            torch.Generator().manual_seed(0), device=dev), mesh)
+        step = ptrain.make_train_step(mesh, neural.make_optimizer(sm), sm)
+        rng = np.random.default_rng(0)
+        events = []
+        for _ in range(TRAIN_EPOCHS):
+            order = to_device(rng.permutation(len(patches)), dev)
+            for i in range(0, len(patches) - batch + 1, batch):
+                sel = order[i:i + batch]
+                px, ly = patches[sel], labels[sel]
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                step(px, ly)
+                ev[1].record()
+                events.append(ev)
+        torch.cuda.synchronize()
+        ms = sorted(a.elapsed_time(b) for a, b in events[TRAIN_TIMED_FROM:])
+        sh_ms = _median(ms)
+        # The whole net gathered from the shards reads as the shards do.
+        full = neural.params_from_jax(model.full_tree(), dev)
+        with torch.no_grad():
+            gathered = torch.equal(full(patches[:batch]),
+                                   model(patches[:batch]))
+    counts = _read_counts()
+    print(f"train sharded on {card}: NCCL world of 1 on {rank_dev}, mesh "
+          f"{mesh.shape}; first {SHARDED_STEPS} losses {sharded} against "
+          f"train_step's {single} (largest relative difference {rel:.3g}, "
+          f"tol {SHARDED_LOSS_RTOL}); train_sharded {TRAIN_EPOCHS} epochs "
+          f"of {batch} in {t_train:.2f} s, accuracy {acc:.4f} (bar "
+          f"{TRAIN_ACC}); a step {sh_ms:.3f} ms [{ms[0]:.3f}, {ms[-1]:.3f}] "
+          f"(median [min, max] of the last {len(ms)} of {len(events)}, CUDA "
+          f"events) against train_step's {step_ms:.3f} ms "
+          f"({sh_ms / step_ms:.3f}×); launches {counts} (phase "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    _require(rel <= SHARDED_LOSS_RTOL,
+             "train sharded: losses differ from single-card training")
+    _require(acc >= TRAIN_ACC, "train sharded: accuracy under the bar")
+    _require(gathered, "train sharded: the gathered net reads otherwise")
+    return {"launches": counts, "step_ms": sh_ms, "accuracy": acc,
+            "loss_rel": rel}
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -3600,6 +3911,8 @@ def run_phases(dev, card: str) -> dict:
     t0 = time.perf_counter()
     trn = phase_train(dev, card)
     net = trn.pop("model")
+    tsh = phase_train_sharded(trn.pop("patches"), trn.pop("labels"),
+                              trn["batch"], trn["step_ms"], dev, card)
     tn = phase_neural(net, game, dev, card)
     tv = phase_meta_voter(net, film_game, dev, card)
     tb = phase_bgsub(film_game, dev, card)
@@ -3620,6 +3933,14 @@ def run_phases(dev, card: str) -> dict:
     del train_cases, net
     print(f"finders and trainer phases {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    dfn = phase_device_fns(film_game, dev, card)
+    paths.update({f"device fns: {k}": v for k, v in dfn["paths"].items()})
+    paths["train sharded"] = tsh["launches"]
+    phase_kernel_times(dfn["cases"], card)
+    cases += [_numbers_only(c) for c in dfn["cases"]]
+    print(f"device fns and sharded trainer phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     ts = phase_synth(dev, card)
     synth_cases = phase_synth_kernels(dev)
@@ -3670,6 +3991,9 @@ def run_phases(dev, card: str) -> dict:
                         "train_own_mib": trn["own_mib"],
                         "train_accuracy": trn["accuracy"],
                         "train_held_out_accuracy": trn["held_out"],
+                        "train_sharded_step_ms": tsh["step_ms"],
+                        "train_sharded_accuracy": tsh["accuracy"],
+                        **{f"{k} ms": v for k, v in dfn["ms"].items()},
                         "neural_c2_fps": tn["fps"],
                         "c3_fps_without_voter": tv["fps"]["without"],
                         "c3_fps_with_voter": tv["fps"]["with"],

@@ -966,3 +966,89 @@ def test_check_and_live_latency_on_the_card():
     assert rep["detected"] == rep["expected"], rep
     floor = rep["floor_vote_commit_s"]
     assert all(v > floor * 0.8 for v in rep["latencies_s"]), rep
+
+
+def test_device_fns_on_the_card_match_the_cpu():
+    """The reference's device functions that no other path calls, on the
+    card against the CPU: ``hough_lines`` (one Hough launch; θ equal, ρ
+    within 1e-3 px on two drawn lines), ``warp_batch`` (one warp launch,
+    bitwise to its plain version), ``_coarse_quad`` (one edge, hysteresis
+    and Hough launch; quad within 0.5 px), and a ``step_frame`` loop
+    against ``sf_bgsub.read_batch`` (labels equal)."""
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops import hough, warp
+    from camkifu_tpu_torch.stone import sf_bgsub
+
+    dev = _device()
+    img = torch.zeros((128, 128), device=dev)
+    img[40, :] = 1.0
+    img[:, 100] = 1.0
+    before = hough_kernel.launches
+    th, rho, _ = hough.hough_lines(img, k=512)
+    assert hough_kernel.launches == before + 1
+    th_c, rho_c, _ = hough.hough_lines(img.cpu(), k=512)
+    assert torch.equal(th.cpu(), th_c)
+    assert float((rho.cpu() - rho_c).abs().max()) <= 1e-3
+
+    frames = _frames(dev)
+    base = torch.from_numpy(default_corners((720, 1280))).to(dev)
+    corners = base + torch.arange(4, device=dev)[:, None, None] * 0.7
+    before = warp_kernel.launches
+    canon = warp.warp_batch(frames, corners)
+    assert warp_kernel.launches == before + 1
+    H = homography_dlt(canonical_corners(device=dev), corners).contiguous()
+    assert torch.equal(canon, warp_kernel.warp_homography_ref(
+        frames, H, (304, 304)))
+
+    f = frames[0]
+    small = bf_auto.resize_bilinear(
+        bf_auto.rgb_to_gray_u8(f).float() / 255.0, (256, 256))
+    chroma = bf_auto.resize_bilinear(
+        (f[..., 0].float() - f[..., 2].float()) / 255.0, (256, 256))
+    counts = [m.launches for m in (edge_kernel, hysteresis_kernel,
+                                   hough_kernel)]
+    quad, score = bf_auto._coarse_quad(small, chroma)
+    assert [m.launches for m in (edge_kernel, hysteresis_kernel,
+                                 hough_kernel)] == [n + 1 for n in counts]
+    quad_c, score_c = bf_auto._coarse_quad(small.cpu(), chroma.cpu())
+    assert float((quad.cpu() - quad_c).abs().max()) <= 0.5
+    assert abs(float(score) - float(score_c)) <= 1e-3
+
+    canon = warp.warp_batch_fixed(frames, base, scale=1.0 / 255.0)
+    state = state0 = sf_bgsub.init_state(device=dev)
+    labels = []
+    for x in canon:
+        state, (lab, _, _) = sf_bgsub.step_frame(state, x)
+        labels.append(lab)
+    _, ref, _, _ = sf_bgsub.read_batch(state0, frames, base)
+    assert torch.equal(torch.stack(labels), ref)
+
+
+def test_train_sharded_in_a_world_of_one_on_the_card():
+    """``parallel.train`` through NCCL at world size 1: the first three
+    losses within 1e-5 relative of single-card ``train_step``'s from the
+    same seed and batches, and the gathered net reads as the shards."""
+    from camkifu_tpu_torch.models import neural
+    from camkifu_tpu_torch.parallel import train as ptrain
+
+    dev = _device()
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.random((1536, 16, 16, 3), np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 3, 1536)).to(dev)
+    with ptrain.process_group(dev):
+        assert torch.distributed.get_backend() == "nccl"
+        layout = ptrain.make_mesh(1, model_parallel=2)
+        assert layout.shape == {"data": 1, "model": 1}
+        m = neural.init_params(torch.Generator().manual_seed(0), device=dev)
+        opt = neural.make_optimizer(m)
+        sm = ptrain.shard_model(neural.init_params(
+            torch.Generator().manual_seed(0), device=dev), layout)
+        step = ptrain.make_train_step(layout, neural.make_optimizer(sm), sm)
+        for i in range(3):
+            xb, yb = x[i * 512:(i + 1) * 512], y[i * 512:(i + 1) * 512]
+            a = float(neural.train_step(m, opt, xb, yb)[0])
+            b = float(step(xb, yb)[0])
+            assert abs(a - b) <= 1e-5 * abs(a)
+        full = neural.params_from_jax(sm.full_tree(), dev)
+        with torch.no_grad():
+            assert torch.equal(full(x[:256]), sm(x[:256]))

@@ -19,13 +19,18 @@ from camkifu_tpu.gamemodel import kifu as jkifu
 from camkifu_tpu.gamemodel import move as jmove
 from camkifu_tpu.gamemodel import rules as jrules
 from camkifu_tpu.gamemodel import sgf as jsgf
+from camkifu_tpu.core import capture as jcapture
+from camkifu_tpu.core import video as jvideo
+from camkifu_tpu.core import vmanager as jvmanager
+from camkifu_tpu.utils import board_to_ascii as jboard_to_ascii
 from camkifu_tpu.utils import synth
 from camkifu_tpu_torch import filecheck
 from camkifu_tpu_torch.config import cvconf, guiconf
-from camkifu_tpu_torch.core import controllerv, gamesync
-from camkifu_tpu_torch.core.vmanager import VManagerBase
+from camkifu_tpu_torch.core import capture, controllerv, gamesync, video
+from camkifu_tpu_torch.core.vmanager import VManagerBase, VManagerSeq
 from camkifu_tpu_torch.gamemodel import kifu, move, rules, sgf
 from camkifu_tpu_torch.stone import sf_meta
+from camkifu_tpu_torch.utils import board_to_ascii
 
 CONSTANTS = ["zone_size", "canonical_size", "frame_batch", "vote_window",
              "vote_threshold", "vote_min_conf", "agitation_threshold",
@@ -295,3 +300,67 @@ def test_finder_registries_match_the_reference():
         assert [(c.__name__, c.label) for c in ours] == want
         assert all(c.__module__.startswith("camkifu_tpu_torch.")
                    for c in ours)
+
+
+@pytest.mark.parametrize("gsize,zone", [(9, 16), (13, 16), (19, 16), (19, 8)])
+def test_canonical_size_for_matches_the_reference(gsize, zone):
+    assert cvconf.canonical_size_for(gsize, zone) \
+        == jcvconf.canonical_size_for(gsize, zone)
+    assert cvconf.canonical_size_for(gsize) == jcvconf.canonical_size_for(
+        gsize)
+
+
+def test_board_to_ascii_matches_the_reference():
+    labels = np.random.default_rng(8).integers(0, 3, (19, 19)).astype(
+        np.int8)
+    assert board_to_ascii(labels) == jboard_to_ascii(labels)
+    assert board_to_ascii(labels[:9, :9]).count("\n") == 8
+
+
+def _processed(video_mod, manager, frames, fail_at=None):
+    """A VidProcessor of ``video_mod`` over ``manager`` reading ``frames``
+    from an ArrayCapture in batches of 2 through its own ``execute``: the
+    (frames, n) of every batch, the frame count, the last error."""
+
+    class Recorder(video_mod.VidProcessor):
+        def __init__(self, vm):
+            super().__init__(vm)
+            self.seen = []
+
+        def _doframe(self, batch, n=None):
+            self.seen.append((np.asarray(batch).copy(), n))
+            if len(self.seen) == fail_at:
+                raise ValueError("batch rejected")
+
+    proc = Recorder(manager)
+    proc.execute()
+    return proc.seen, proc.total_frames, proc.metadata["frame"], \
+        proc.last_error
+
+
+@pytest.mark.parametrize("fail_at", [None, 2])
+def test_read_batch_and_execute_match_the_reference(fail_at):
+    """``VManagerBase.read_batch`` over an ArrayCapture and
+    ``VidProcessor.execute`` on it, against the reference's: the same
+    padded batches and valid counts, frames counted, an error in a batch
+    recorded and the loop going on. The port's batch comes on the
+    manager's device (here the CPU), copied once."""
+    frames = np.random.default_rng(9).integers(0, 256, (5, 12, 16, 3),
+                                               dtype=np.uint8)
+    vm = VManagerSeq(None, video=None, batch=2, device="cpu")
+    vm.capture = capture.ArrayCapture(frames)
+    jvm = jvmanager.VManagerSeq(None, video=None, batch=2)
+    jvm.capture = jcapture.ArrayCapture(frames)
+    first = vm.read_batch()
+    assert isinstance(first[0], torch.Tensor) and first[0].device.type == "cpu"
+    ref_first = jvm.read_batch()
+    assert np.array_equal(first[0].numpy(), ref_first[0])
+    assert first[1:] == ref_first[1:]
+    ours = _processed(video, vm, frames, fail_at)
+    ref = _processed(jvideo, jvm, frames, fail_at)
+    assert [n for _, n in ours[0]] == [n for _, n in ref[0]] == [2, 1]
+    assert all(np.array_equal(a, b) for (a, _), (b, _) in zip(ours[0],
+                                                              ref[0]))
+    assert ours[1:] == ref[1:]
+    assert ours[3] == (None if fail_at is None
+                       else "ValueError: batch rejected")

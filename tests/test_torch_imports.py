@@ -36,7 +36,9 @@ MODULES = [
     "camkifu_tpu_torch.pipeline",
     "camkifu_tpu_torch.filecheck",
     "camkifu_tpu_torch.board.bf_auto",
+    "camkifu_tpu_torch.ops",
     "camkifu_tpu_torch.ops.background",
+    "camkifu_tpu_torch.ops.kmeans",
     "camkifu_tpu_torch.ops.hough",
     "camkifu_tpu_torch.ops.lens",
     "camkifu_tpu_torch.ops.warp",
@@ -51,12 +53,14 @@ MODULES = [
     "camkifu_tpu_torch.models.neural",
     "camkifu_tpu_torch.parallel",
     "camkifu_tpu_torch.parallel.mesh",
+    "camkifu_tpu_torch.parallel.train",
     "camkifu_tpu_torch.ops.cuda._build",
     "camkifu_tpu_torch.ops.cuda.warp_kernel",
     "camkifu_tpu_torch.ops.cuda.edge_kernel",
     "camkifu_tpu_torch.ops.cuda.hough_kernel",
     "camkifu_tpu_torch.ops.cuda.hysteresis_kernel",
     "camkifu_tpu_torch.ops.edges",
+    "camkifu_tpu_torch.utils",
     "camkifu_tpu_torch.utils.still",
     "camkifu_tpu_torch.utils.synth",
     "camkifu_tpu_torch.utils.latency",

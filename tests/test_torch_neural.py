@@ -275,11 +275,17 @@ def test_checkpoint_roundtrip_and_the_flax_layout(tmp_path):
 
 def test_main_trains_and_saves(tmp_path, capsys):
     """The trainer's entry point on the CPU, one board and one epoch, and
-    ``--sharded`` refused."""
+    with ``--sharded`` (``parallel/train.py`` in a gloo world of one, whose
+    net is the same as the single-process one's)."""
     out = str(tmp_path / "ckpt.npz")
     assert neural.main(["--boards", "1", "--epochs", "1", "--out", out],
                        device="cpu") == 0
     assert neural.load_params(out, device="cpu") is not None
     assert "361 patches; training (batch 256)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        neural.main(["--sharded"], device="cpu")
+    out_sh = str(tmp_path / "sharded.npz")
+    assert neural.main(["--boards", "1", "--epochs", "1", "--out", out_sh,
+                        "--sharded", "--device", "cpu"]) == 0
+    assert "361 patches; training (batch 256)" in capsys.readouterr().out
+    a, b = (neural.load_params(p, device="cpu") for p in (out, out_sh))
+    for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+        assert torch.equal(x, y)

@@ -98,15 +98,15 @@ def test_kmeans_matches_jax(init):
     x = np.concatenate([rng.normal(m, 0.05, (60, 3))
                         for m in (-0.35, 0.0, 0.35)]).astype(np.float32)
     init = np.array([[c] * 3 for c in init], np.float32)
-    c_t, l_t, k_t = kmeans.kmeans(_t(x), _t(init), k=3, iters=8)
+    c_t, l_t, k_t = kmeans(_t(x), k=3, iters=8, init=_t(init))
     c_j, l_j, k_j = jax_kmeans(jnp.asarray(x), k=3, iters=8,
                                init=jnp.asarray(init))
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-5)
     assert np.array_equal(l_t.numpy(), np.asarray(l_j))
     np.testing.assert_allclose(k_t.numpy(), np.asarray(k_j), atol=1e-5)
     # A batch of problems (the reference vmaps) solves each as alone.
-    cb, lb, _ = kmeans.kmeans(_t(np.stack([x, x[::-1].copy()])), _t(init),
-                              k=3, iters=8)
+    cb, lb, _ = kmeans(_t(np.stack([x, x[::-1].copy()])), k=3, iters=8,
+                       init=_t(init))
     assert torch.equal(lb[0], l_t)
     torch.testing.assert_close(cb[0], c_t, atol=1e-6, rtol=0)
 

@@ -101,7 +101,9 @@ def test_infer_gsize_equals_three_separate_probes():
 
 def test_infer_gsize_reports_no_board():
     """A flat 720p frame, where stage 1 finds nothing (score 0): every
-    candidate fails (−1.0), the answer is 0."""
+    candidate fails (−1.0), the answer is 0. The reference finds a phantom
+    board in the resize's rounding dust here, a recorded departure
+    (tests/test_torch_board_free.py)."""
     frame = torch.full((720, 1280, 3), 90, dtype=torch.uint8)
     g, quals = bf_auto.infer_gsize(frame)
     assert g == 0
