@@ -56,6 +56,7 @@ from camkifu_tpu_torch.config import guiconf
 from camkifu_tpu_torch.core.feeder import to_device
 from camkifu_tpu_torch.gamemodel.move import B, W, Move
 from camkifu_tpu_torch.gamemodel.rules import RuleUnsafe
+from camkifu_tpu_torch.utils.raster import AA_REACH, _disc, _pixel_grid
 
 WOOD = (193, 154, 107)       # RGB board wood
 LINE = (40, 30, 20)
@@ -70,11 +71,6 @@ PALETTES = {
     "bamboo": ((214, 190, 140), (60, 50, 35), (35, 32, 30), (240, 240, 235)),
 }
 
-#: cv2's anti-aliased fill reaches this far past a circle's radius before
-#: its one-pixel ramp ends (fitted to cv2's own circles); circles of radius
-#: under 3 are 4-gons there, diamonds reaching ``AA_DIAMOND`` past theirs.
-AA_REACH = 1.05
-AA_DIAMOND = 1.28
 #: cv2 fills a polygon with its edge pixels: an ellipse drawn without
 #: anti-aliasing reaches this far past its rim (fitted to cv2's own).
 FILL_REACH = 0.5
@@ -236,21 +232,6 @@ def _conv2d_same(img: torch.Tensor, k: np.ndarray) -> torch.Tensor:
     kt = to_device(k, img.device).expand(c, 1, n, n)
     x = F.conv2d(F.pad(x, (n // 2,) * 4, mode="reflect"), kt, groups=c)
     return x[0].permute(1, 2, 0)
-
-
-def _pixel_grid(h: int, w: int, device, x0: int = 0, y0: int = 0,
-                dtype=torch.float32):
-    """(yy (h, 1), xx (1, w)) pixel coordinates from (y0, x0)."""
-    return (torch.arange(y0, y0 + h, dtype=dtype, device=device)[:, None],
-            torch.arange(x0, x0 + w, dtype=dtype, device=device)[None, :])
-
-
-def _disc(dx: torch.Tensor, dy: torch.Tensor, r: float) -> torch.Tensor:
-    """Anti-aliased coverage of a filled cv2 circle of radius ``r`` at
-    offsets (dx, dy) from its centre."""
-    if r < 3:
-        return (r + AA_DIAMOND - dx.abs() - dy.abs()).clamp(0.0, 1.0)
-    return (r + AA_REACH - torch.sqrt(dx * dx + dy * dy)).clamp(0.0, 1.0)
 
 
 def _ellipse_d(yy, xx, cx, cy, ax, ay, angle_deg):

@@ -52,7 +52,12 @@ once each, counting kernel launches per path:
   ``filecheck.check`` on four ``synth:`` specs at the reference's PASS bar;
   the gauntlet scenario rendered without its mp4 round trip through
   ``run_runtime`` to its exact kifu; ``utils.latency.measure_live_latency``
-  (a paced camera into ``LiveCapture`` and the threaded ``VManager``).
+  (a paced camera into ``LiveCapture`` and the threaded ``VManager``);
+- the application layer: ``ckmain --nogui --gsize auto`` (size inference,
+  then ``main_headless`` with the default finders) over a 10-move 1080p
+  game to its SGF, ``--corners --sf clustering`` over the recorded game,
+  and the preview window's overlay (``core.imgutil.annotate_preview``)
+  on the card against the CPU.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -310,6 +315,20 @@ HOUGH_RHO_TOL = 1e-3
 #: first steps' losses, relative.
 SHARDED_STEPS = 3
 SHARDED_LOSS_RTOL = 1e-5
+
+#: The application layer (``ckmain``): a 1080p game rendered by
+#: ``utils.synth`` (10 moves, 9 frames each after 10 of the empty board),
+#: read with ``--gsize auto`` and the default finders in batches of 32,
+#: timed over APP_REPS calls; the preview overlay timed over
+#: APP_OVERLAY_REPS ticks, card against CPU within APP_OVERLAY_TOL DN.
+APP_HW = (1080, 1920)
+APP_MOVES = 10
+APP_PER_MOVE = 9
+APP_LEADIN = 10
+APP_BATCH = 32
+APP_REPS = 3
+APP_OVERLAY_REPS = 20
+APP_OVERLAY_TOL = 1
 
 
 class SmokeFailure(RuntimeError):
@@ -931,7 +950,7 @@ def phase_film(dev) -> dict:
     _require(same_labels and same_stable,
              "film: card and CPU vote scans disagree")
     return {"frames": frames, "corners": corners, "launches": counts,
-            "moves": moves}
+            "moves": moves, "truth": truth}
 
 
 def _drift_labels() -> "np.ndarray":
@@ -3771,6 +3790,176 @@ def phase_train_sharded(patches, labels, batch: int, step_ms: float, dev,
             "loss_rel": rel}
 
 
+def _ckmain_args(argv, frames):
+    """``ckmain``'s arguments with ``frames`` as the video, the way a
+    caller hands in-memory frames to it."""
+    from camkifu_tpu_torch import ckmain
+
+    args = ckmain.get_argparser().parse_args(argv)
+    args.video = frames
+    return args
+
+
+def _ckmain_headless(args, bf_class, sf_class, corners=None):
+    """``ckmain.main_headless`` → (its return code, printed lines, its
+    manager: the finders keep their state)."""
+    import contextlib
+    import io
+
+    from camkifu_tpu_torch import ckmain
+    from camkifu_tpu_torch.core import vmanager
+
+    managers = []
+    instantiate = vmanager.VManagerSeq.instantiate_finders
+
+    def keep(self):
+        instantiate(self)
+        managers.append(self)
+
+    vmanager.VManagerSeq.instantiate_finders = keep
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = ckmain.main_headless(args, bf_class, sf_class, corners)
+    finally:
+        vmanager.VManagerSeq.instantiate_finders = instantiate
+    return rc, out.getvalue(), managers[-1]
+
+
+def phase_app(film: dict, dev, card: str) -> dict:
+    """The application layer on the card. ``ckmain`` as ``main`` runs it
+    with ``--nogui --gsize auto``: ``_infer_gsize`` on the probe frame,
+    then ``main_headless`` with the default finders (``BoardFinderAuto``,
+    ``SfMeta``), over a 1080p game rendered by ``utils.synth``; the saved
+    SGF must hold the truth's moves at size 19, and every kernel must
+    launch. Then ``--corners`` (the renderer's) with ``--sf clustering``
+    over the film game: its kifu exact. Then the preview overlay
+    (``core.imgutil.annotate_preview``: the finder's corners and metadata
+    on the game's last frame) on the card against the CPU. Times:
+    ``main_headless`` frames/s on the host clock over APP_REPS calls (the
+    first anchor included), the overlay's tick (the frame up, drawn, back
+    to the host) by CUDA events."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch import ckmain
+    from camkifu_tpu_torch.board.bf_manual import BoardFinderManual
+    from camkifu_tpu_torch.config import cvconf
+    from camkifu_tpu_torch.core.feeder import to_device
+    from camkifu_tpu_torch.core.imgutil import annotate_preview
+    from camkifu_tpu_torch.gamemodel.kifu import Kifu
+    from camkifu_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    moves = synth.sample_moves(APP_MOVES, seed=21)
+    frames = [f.cpu().numpy() for f, _ in synth.render_game(
+        moves, APP_PER_MOVE, frame_hw=APP_HW, empty_leadin=APP_LEADIN,
+        seed=21, device=dev)]
+    t_render = time.perf_counter() - t0
+    bfs, sfs = cvconf.bfinders(), cvconf.sfinders()
+    with tempfile.TemporaryDirectory() as tmp:
+        sgf = os.path.join(tmp, "game.sgf")
+        argv = ["--nogui", "--gsize", "auto", "--batch", str(APP_BATCH),
+                "--sgf", sgf, "--device", str(dev)]
+        _reset_counts()
+        t0 = time.perf_counter()
+        args = _ckmain_args(argv, frames)
+        args.gsize = ckmain._infer_gsize(args)
+        rc, printed, vm = _ckmain_headless(args, bfs[0], sfs[0])
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = _read_counts()
+        kifu = Kifu.load(sgf)
+        got = _moves_of(kifu.moves())
+        print(f"app: ckmain --nogui --gsize auto on {len(frames)} "
+              f"{APP_HW[0]}p frames (rendered in {t_render:.2f} s): rc {rc}"
+              f", gsize {args.gsize}, SZ {kifu.gsize}, {len(got)} moves "
+              f"{'= the truth' if got == _moves_of(moves) else '!= the truth'}"
+              f" ({printed.strip().splitlines()[0]}); launches {counts} "
+              f"(first call {t_first:.2f} s)", flush=True)
+        _require(rc == 0 and args.gsize == 19 and kifu.gsize == 19,
+                 "app: ckmain did not read a 19 × 19 board")
+        _require(got == _moves_of(moves), "app: the ckmain kifu is wrong")
+        _require_launched(counts, "ckmain")
+        bf = vm.board_finder
+        corners, meta = bf.corners_array, dict(bf.metadata)
+        secs = []
+        for _ in range(APP_REPS):
+            os.remove(sgf)
+            args = _ckmain_args(argv, frames)
+            args.gsize = 19
+            t0 = time.perf_counter()
+            rc, _, _ = _ckmain_headless(args, bfs[0], sfs[0])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            _require(rc == 0 and _moves_of(Kifu.load(sgf).moves())
+                     == _moves_of(moves), "app: a timed ckmain call misread")
+    fps = sorted(len(frames) / s for s in secs)
+    print(f"app on {card}: ckmain main_headless {APP_HW[0]}p, batch "
+          f"{APP_BATCH}, frames/s (host clock, first anchor included) "
+          f"{_median(fps):.1f} [{fps[0]:.1f}, {fps[-1]:.1f}]", flush=True)
+
+    # Manual corners and the clustering finder over the film game.
+    corner_arg = ",".join(repr(float(v)) for v in film["truth"].reshape(-1))
+    t0 = time.perf_counter()
+    _reset_counts()
+    args = _ckmain_args(["--nogui", "--corners", corner_arg, "--sf",
+                         "clustering", "--batch", str(FILM_BATCH),
+                         "--device", str(dev)], list(film["frames"]))
+    corners_film = np.array([float(v) for v in args.corners.split(",")],
+                            np.float32).reshape(4, 2)
+    rc, printed, _ = _ckmain_headless(
+        args, BoardFinderManual, ckmain._resolve(sfs, args.sf, sfs[0]),
+        corners_film)
+    manual_counts = _read_counts()
+    sgf_text = printed.split("\n", 1)[1]
+    want = "".join(f";{m.color}[{m.sgf}]\n" for m in film["moves"])
+    print(f"app: ckmain --corners --sf clustering on the film game "
+          f"({len(film['frames'])} {FILM_HW[0]}p frames): rc {rc}, "
+          f"{printed.strip().splitlines()[0]}, kifu "
+          f"{'exact' if want in sgf_text and sgf_text.count(';') == len(film['moves']) + 1 else 'WRONG'}"
+          f"; launches {manual_counts} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    _require(rc == 0 and want in sgf_text
+             and sgf_text.count(";") == len(film["moves"]) + 1,
+             "app: the manual-corners kifu is wrong")
+    _require_warp_launched(manual_counts, "ckmain manual corners")
+
+    # The preview overlay: card against CPU, then a tick's time.
+    frame = frames[-1]
+    card_img = annotate_preview(frame, corners, meta, dev)
+    cpu_img = annotate_preview(frame, corners, meta, "cpu")
+    diff = int((card_img.cpu().to(torch.int16) - cpu_img.to(torch.int16))
+               .abs().max())
+    drawn = int((cpu_img != torch.from_numpy(frame)).any(-1).sum())
+    runs = _cuda_ms_runs(
+        lambda: annotate_preview(frame, corners, meta, dev).cpu(),
+        APP_OVERLAY_REPS)
+    copies = _cuda_ms_runs(lambda: to_device(frame, dev).cpu(),
+                           APP_OVERLAY_REPS)
+    on_card = to_device(frame, dev)
+    draws = _cuda_ms_runs(
+        lambda: annotate_preview(on_card, corners, meta, dev),
+        APP_OVERLAY_REPS)
+    print(f"app on {card}: preview overlay at {APP_HW[0]}p (4 rings, "
+          f"{len(meta)} metadata lines, {drawn} pixels drawn): card against "
+          f"CPU {'bitwise' if diff == 0 else f'within {diff} DN'} (tol "
+          f"{APP_OVERLAY_TOL}); a tick (up, drawn, back) "
+          f"{_median(runs):.3f} ms [{runs[0]:.3f}, {runs[-1]:.3f}]: the two "
+          f"copies alone {_median(copies):.3f} ms [{copies[0]:.3f}, "
+          f"{copies[-1]:.3f}], the drawing alone on a frame already on the "
+          f"card {_median(draws):.3f} ms [{draws[0]:.3f}, {draws[-1]:.3f}]",
+          flush=True)
+    _require(diff <= APP_OVERLAY_TOL and drawn > 0,
+             "app: the preview overlay differs between the card and the CPU")
+    return {"launches": counts, "manual_launches": manual_counts,
+            "fps": fps, "overlay_ms": runs, "overlay_copies_ms": copies,
+            "overlay_draw_ms": draws, "overlay_diff": diff}
+
+
 SOURCES = {
     "warp": ("camkifu_tpu_torch/csrc/warp.cu",
              "camkifu_tpu/ops/pallas/warp_kernel.py:122"),
@@ -3866,7 +4055,8 @@ def run_phases(dev, card: str) -> dict:
     t0 = time.perf_counter()
     paths["multi-stream"] = phase_multistream(film, handheld, dev)["launches"]
     game = {k: handheld[k] for k in ("frames", "moves", "truth")}
-    film_game = {k: film[k] for k in ("frames", "corners", "moves")}
+    film_game = {k: film[k] for k in ("frames", "corners", "moves",
+                                      "truth")}
     del film, handheld
     print(f"multi-stream phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -3954,6 +4144,11 @@ def run_phases(dev, card: str) -> dict:
                   "gauntlet": tg["launches"], "live": tlv["launches"]})
     print(f"synth, check, gauntlet and live phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tapp = phase_app(film_game, dev, card)
+    paths.update({"ckmain": tapp["launches"],
+                  "ckmain manual corners": tapp["manual_launches"]})
+    print(f"app phase {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = [_kernel_entry(name, source, replaces, cases, paths)
                for name, (source, replaces) in SOURCES.items()]
     kernels[0]["lens_launches_per_path"] = lens_warps
@@ -4010,7 +4205,12 @@ def run_phases(dev, card: str) -> dict:
                         "live_floor_batch_fill_s":
                             tlv["report"]["floor_batch_fill_s"],
                         "live_floor_vote_commit_s":
-                            tlv["report"]["floor_vote_commit_s"]}}
+                            tlv["report"]["floor_vote_commit_s"],
+                        "ckmain_fps": tapp["fps"],
+                        "overlay_tick_ms": tapp["overlay_ms"],
+                        "overlay_copies_ms": tapp["overlay_copies_ms"],
+                        "overlay_draw_ms": tapp["overlay_draw_ms"],
+                        "overlay_card_cpu_dn": tapp["overlay_diff"]}}
 
 
 def main() -> int:
@@ -4029,6 +4229,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"tf32 cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    t_start = time.perf_counter()
     try:
         phase_build(_build)
         result = run_phases(torch.device("cuda", 0), card)
@@ -4036,7 +4237,7 @@ def main() -> int:
         print(f"FAIL: {exc}", flush=True)
         return 1
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
-          f" MiB", flush=True)
+          f" MiB; wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(result["summary"]), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": result["kernels"]}), flush=True)

@@ -1052,3 +1052,27 @@ def test_train_sharded_in_a_world_of_one_on_the_card():
         full = neural.params_from_jax(sm.full_tree(), dev)
         with torch.no_grad():
             assert torch.equal(full(x[:256]), sm(x[:256]))
+
+
+def test_preview_overlay_on_the_card_matches_the_cpu():
+    """``core.imgutil.annotate_preview`` (four rings and the metadata's
+    lines on a 1080p frame) on the card equals the CPU's bit for bit; the
+    frame itself is not drawn on."""
+    from camkifu_tpu_torch.core.imgutil import annotate_preview
+
+    dev = _device()
+    frame = np.random.default_rng(5).integers(0, 256, (1080, 1920, 3),
+                                              dtype=np.uint8)
+    corners = np.array([[312.4, 201.7], [1601.2, 188.9], [1688.0, 930.5],
+                        [240.6, 951.3]], np.float32)
+    meta = {"detect": 0.93, "frame": 1234, "lens_k1": 0.0,
+            "corners": corners.round(1).tolist(), "track_trip": None}
+    card = annotate_preview(frame, corners, meta, dev)
+    cpu = annotate_preview(frame, corners, meta, "cpu")
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), cpu)
+    assert not torch.equal(cpu, torch.from_numpy(frame))
+    on_card = torch.from_numpy(frame).to(dev)
+    assert torch.equal(annotate_preview(on_card, corners, meta, dev).cpu(),
+                       cpu)
+    assert torch.equal(on_card.cpu(), torch.from_numpy(frame))

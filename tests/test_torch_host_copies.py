@@ -364,3 +364,48 @@ def test_read_batch_and_execute_match_the_reference(fail_at):
     assert ours[1:] == ref[1:]
     assert ours[3] == (None if fail_at is None
                        else "ValueError: batch rejected")
+
+
+def test_gui_constants_match_the_reference():
+    for name in ("gsize", "canvas_size", "stone_ratio", "background"):
+        assert getattr(guiconf, name) == getattr(jguiconf, name)
+
+
+SEGMENTS = [((0, 0), (10, 0)), ((5, -5), (5, 5)), ((1.5, 2.25), (-7, 11)),
+            ((3, 3), (3, 3)), ((0, 1), (10, 1)), ((-4.0, 8.5), (12.0, -1.0))]
+
+
+@pytest.mark.parametrize("a", range(len(SEGMENTS)))
+def test_segment_matches_the_reference(a):
+    from camkifu_tpu.core import imgutil as jimgutil
+    from camkifu_tpu_torch.core import imgutil
+
+    ours, ref = imgutil.Segment(*SEGMENTS[a]), jimgutil.Segment(*SEGMENTS[a])
+    assert (ours.p1, ours.p2, ours.norm, ours.angle, repr(ours)) == \
+        (ref.p1, ref.p2, ref.norm, ref.angle, repr(ref))
+    for pt in ((3, 4), (0, 0), (-2.5, 7.25)):
+        assert ours.distance_to(pt) == ref.distance_to(pt)
+    for other in SEGMENTS:
+        assert ours.intersection(imgutil.Segment(*other)) == \
+            ref.intersection(jimgutil.Segment(*other))
+
+
+def test_around_cyclic_buffer_and_order_corners_match_the_reference():
+    from camkifu_tpu.core import imgutil as jimgutil
+    from camkifu_tpu_torch.core import imgutil
+
+    for args in ((0, 0), (9, 9, 2), (18, 0, 1, 19, True), (4, 8, 3, 9),
+                 (12, 12, 1, 13, True)):
+        assert list(imgutil.around(*args)) == list(jimgutil.around(*args))
+    ours, ref = imgutil.CyclicBuffer((2,), 3), jimgutil.CyclicBuffer((2,), 3)
+    for i in range(5):
+        assert np.array_equal(ours.view(), ref.view()) \
+            and len(ours) == len(ref)
+        ours.append([i, -i])
+        ref.append([i, -i])
+    assert np.array_equal(ours.view(), ref.view())
+    assert ours.view().dtype == ref.view().dtype
+    pts = np.array([[100, 100], [10, 90], [95, 5], [12, 8]], np.float32)
+    for perm in ([0, 1, 2, 3], [3, 2, 1, 0], [1, 3, 0, 2], [2, 0, 3, 1]):
+        assert np.array_equal(imgutil.order_corners(pts[perm]),
+                              jimgutil.order_corners(pts[perm]))

@@ -64,8 +64,23 @@ MODULES = [
     "camkifu_tpu_torch.utils.still",
     "camkifu_tpu_torch.utils.synth",
     "camkifu_tpu_torch.utils.latency",
+    "camkifu_tpu_torch.utils.raster",
+    "camkifu_tpu_torch.core.imgutil",
+    "camkifu_tpu_torch.ckmain",
+    "camkifu_tpu_torch.glmain",
+    "camkifu_tpu_torch.gui",
+    "camkifu_tpu_torch.gui.goban",
+    "camkifu_tpu_torch.gui.ui",
+    "camkifu_tpu_torch.gui.vui",
+    "camkifu_tpu_torch.gui.video_window",
     "chip_smoke",
 ]
+
+#: What imports where Tk is missing (the card's machine may lack it): the
+#: GUI modules import ``tkinter`` themselves, ``glmain`` and
+#: ``ckmain.main_gui`` inside the call.
+GUI = "camkifu_tpu_torch.gui"
+WITHOUT_TK = [m for m in MODULES if m.split(".")[:2] != GUI.split(".")]
 
 
 def _python(code: str, cwd: str):
@@ -96,6 +111,33 @@ def test_port_imports_without_jax_or_cv2():
     proc = _python(code, ROOT)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_app_and_overlays_import_without_tkinter():
+    """With tkinter blocked as well, ``ckmain``, ``glmain``,
+    ``core.imgutil``, the smoke script and every other non-GUI module
+    import, and no GUI module is loaded; a GUI module itself then fails
+    to import."""
+    blocked = BLOCKED + ("tkinter",)
+    code = ("import sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for name in {WITHOUT_TK!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = [m for m in sys.modules if (m.split('.')[0] in"
+            f" {blocked!r} or m.split('.')[:2] == {GUI.split('.')!r})"
+            " and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n"
+            "try:\n"
+            "    importlib.import_module('camkifu_tpu_torch.gui.goban')\n"
+            "except ImportError:\n"
+            "    print('ok')\n")
+    proc = _python(code, ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    assert {"camkifu_tpu_torch.ckmain", "camkifu_tpu_torch.glmain",
+            "camkifu_tpu_torch.core.imgutil"} <= set(WITHOUT_TK)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
