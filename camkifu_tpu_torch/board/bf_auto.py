@@ -2238,3 +2238,46 @@ class BoardFinderAuto(BoardFinder):
         for p in self._estimate:
             self.corners.add(p)
         return self.corners.ready()
+
+
+def _probe_main(argv=None) -> int:
+    """Golden-input probe (SURVEY §4), the reference's ``__main__``: detect
+    the board on one image file and print its corners and score; with a
+    second path, save the image with a ring at each corner. The image is
+    read and written on the host through cv2; detection runs on
+    ``--device`` (default the card). The rings are the port's own
+    anti-aliased ones (``core.imgutil.draw_circles``, radius 6, one pixel
+    wide), where the reference draws two-pixel rings through cv2."""
+    import argparse
+    import sys
+
+    import cv2
+
+    from camkifu_tpu_torch.core.imgutil import draw_circles
+
+    ap = argparse.ArgumentParser(prog="bf_auto",
+                                 description=_probe_main.__doc__)
+    ap.add_argument("image")
+    ap.add_argument("overlay", nargs="?", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    img = cv2.imread(args.image)
+    if img is None:
+        sys.exit(f"cannot read image: {args.image}")
+    frame = to_device(img[:, :, ::-1].copy(), args.device)
+    det, score = detect_corners(frame)
+    det = det.cpu().numpy()
+    print("corners (tl,tr,br,bl):", det.round(1).tolist())
+    print("score:", float(score))
+    if args.overlay:
+        drawn = draw_circles(frame.clone(), det, radius=6,
+                             color=(255, 0, 0))
+        cv2.imwrite(args.overlay, drawn.cpu().numpy()[:, :, ::-1])
+        print("overlay saved:", args.overlay)
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_probe_main())

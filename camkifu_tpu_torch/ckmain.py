@@ -7,11 +7,10 @@ headless path (sequential manager + controller) used on machines without a
 display and by batch processing.
 
 Copied from camkifu_tpu/ckmain.py, on the port's runtime. Vision runs on
-``--device`` (default the card), as in ``filecheck``. ``--decoders`` and
-``--live-wait`` are left out: each reaches only cv2's file decoders and
-camera, which the port does not use. ``-v`` takes what the port's
-``open_capture`` reads (in-memory frames, set by a caller); a camera index
-or a video path raises ``NotImplementedError``, naming cv2.
+``--device`` (default the card), as in ``filecheck``. ``-v`` takes a camera
+index or a video path, decoded on the host through cv2 (``--decoders``
+workers for a file); a caller may also set in-memory frames as
+``args.video``.
 """
 
 from __future__ import annotations
@@ -45,6 +44,9 @@ def get_argparser() -> argparse.ArgumentParser:
                          " — implies the manual board finder")
     ap.add_argument("--batch", type=int, default=cvconf.frame_batch,
                     help="frames per device batch")
+    ap.add_argument("--decoders", type=int, default=1,
+                    help="host decode workers for video files (film mode); "
+                         ">1 enables segmented parallel decode")
     ap.add_argument("--nogui", action="store_true",
                     help="headless: process the whole video, save the SGF, exit")
     ap.add_argument("--gsize", default=None,
@@ -54,6 +56,10 @@ def get_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--stats", default=None, metavar="PATH",
                     help="write structured per-batch stats (JSONL) here; "
                          "live mode adds frame-arrival latency per batch")
+    ap.add_argument("--live-wait", type=float, default=None, metavar="S",
+                    help="live mode: max seconds to wait for a full frame "
+                         "batch before dispatching a partial one (lower = "
+                         "lower frame→SGF latency, more padded compute)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for vision (default cuda; no CPU "
                          "fallback)")
@@ -135,6 +141,7 @@ def main_headless(args, bf_class, sf_class, corners) -> int:
     vm = VManagerSeq(controller, video=args.video, bounds=tuple(args.bounds),
                      bf_class=bf_class, sf_class=sf_class, batch=args.batch,
                      stats_path=args.stats, initial_corners=corners,
+                     decoders=args.decoders, live_wait_s=args.live_wait,
                      device=args.device)
     vm.instantiate_finders()
     vm.run()
@@ -172,6 +179,7 @@ def main_gui(args, bf_class, sf_class, corners) -> int:
                         bounds=tuple(args.bounds), bf_class=bf_class,
                         sf_class=sf_class, batch=args.batch,
                         stats_path=args.stats, initial_corners=corners,
+                        decoders=args.decoders, live_wait_s=args.live_wait,
                         device=args.device)
     ui = VUI(root, controller, vmanager)
     vmanager.vision_on()

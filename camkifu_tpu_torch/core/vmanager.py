@@ -41,6 +41,8 @@ class VManagerBase:
                  batch: int = cvconf.frame_batch,
                  stats_path: str | None = None,
                  initial_corners=None,
+                 decoders: int = 1,
+                 live_wait_s: float | None = None,
                  device="cuda"):
         self.controller = controller
         self.device = torch.device(device)
@@ -58,6 +60,8 @@ class VManagerBase:
         #: bf_manual's per-video disk persistence).
         self.initial_corners = None if initial_corners is None \
             else np.asarray(initial_corners, np.float32)
+        self.decoders = decoders
+        self.live_wait_s = live_wait_s
         self._bf_class = bf_class or cvconf.bfinders()[0]
         self._sf_class = sf_class or cvconf.sfinders()[0]
         if controller is not None:
@@ -68,7 +72,9 @@ class VManagerBase:
 
     def init_capture(self) -> None:
         if self.capture is None:
-            self.capture = open_capture(self.video, self.bounds)
+            self.capture = open_capture(self.video, self.bounds,
+                                        decoders=self.decoders,
+                                        live_wait_s=self.live_wait_s)
 
     def instantiate_finders(self) -> None:
         self.board_finder = self._bf_class(self)

@@ -120,3 +120,51 @@ class SfClustering(_SF):
         return pipeline.read_board_batch(
             frames, to_device(np.asarray(corners, np.float32), frames.device),
             gsize=self.gsize, lens=self._bf_lens())
+
+
+def _probe_main(argv=None) -> int:
+    """Golden-input probe (SURVEY §4), the reference's ``__main__``: read
+    the stones on one image file and print the board. The image is read on
+    the host through cv2; corners come from the optional second argument
+    (8 comma-separated floats, tl/tr/br/bl) or from ``bf_auto``'s
+    detection, and everything after the read runs on ``--device``
+    (default the card)."""
+    import argparse
+    import sys
+
+    import cv2
+
+    from camkifu_tpu_torch.board import bf_auto
+    from camkifu_tpu_torch.ops.warp import warp_to_canonical
+    from camkifu_tpu_torch.utils import board_to_ascii
+
+    ap = argparse.ArgumentParser(prog="sf_clustering",
+                                 description=_probe_main.__doc__)
+    ap.add_argument("image")
+    ap.add_argument("corners", nargs="?", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    img = cv2.imread(args.image)
+    if img is None:
+        sys.exit(f"cannot read image: {args.image}")
+    frame = to_device(img[:, :, ::-1].copy(), args.device)
+    if args.corners:
+        vals = [float(v) for v in args.corners.split(",")]
+        corners = to_device(np.array(vals, np.float32).reshape(4, 2),
+                            args.device)
+    else:
+        corners, score = bf_auto.detect_corners(frame)
+        print("auto-detected corners, score", float(score))
+    canon = warp_to_canonical(frame, corners) / 255.0
+    labels, conf = classify_canonical(canon)
+    labels = labels.cpu().numpy()
+    print(board_to_ascii(labels))
+    print(f"stones: {int((labels != 0).sum())}, "
+          f"min conf {float(conf.min()):.2f}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_probe_main())

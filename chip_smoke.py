@@ -57,7 +57,12 @@ once each, counting kernel launches per path:
   then ``main_headless`` with the default finders) over a 10-move 1080p
   game to its SGF, ``--corners --sf clustering`` over the recorded game,
   and the preview window's overlay (``core.imgutil.annotate_preview``)
-  on the card against the CPU.
+  on the card against the CPU;
+- video files (decoded on the host through cv2): that 1080p game written
+  to mp4v and read by ``ckmain -v game.mp4 --nogui --gsize auto`` with 1
+  and 4 decoders; the gauntlet with its mp4 round trip through
+  ``run_runtime``; ``filecheck.check`` on the ``real`` spec (an mp4
+  round trip), also beside the cv2 oracle.
 
 It checks corners, labels and moves against the renderer's ground truth
 and against the plain CPU path, checks that every kernel launched on each
@@ -329,6 +334,14 @@ APP_BATCH = 32
 APP_REPS = 3
 APP_OVERLAY_REPS = 20
 APP_OVERLAY_TOL = 1
+
+#: The video phase: the app's 1080p game written to mp4v at VIDEO_FPS and
+#: read by ``ckmain -v`` with each count of decoders, VIDEO_REPS calls
+#: each; then the gauntlet with its mp4 round trip, and REAL_SPEC.
+VIDEO_FPS = 25
+VIDEO_DECODERS = (1, 4)
+VIDEO_REPS = 3
+REAL_SPEC = "synth:24:real"
 
 
 class SmokeFailure(RuntimeError):
@@ -3424,7 +3437,8 @@ def phase_check(dev, card: str) -> dict:
 
 def phase_gauntlet(dev) -> dict:
     """``synth.gauntlet_scenario``'s game and camera without its mp4 round
-    trip, rendered on the card, through ``run_runtime(batch=16)``: the
+    trip (``synth._gauntlet``), rendered on the card, through
+    ``run_runtime(batch=16)``: the
     kifu the reference's runtime reads on the same codec-free scenario
     (GAUNTLET_REFERENCE_SWAP), every move of it, its agreement with the
     truth and its first differing move printed."""
@@ -3436,7 +3450,7 @@ def phase_gauntlet(dev) -> dict:
 
     t0 = time.perf_counter()
     _reset_counts()
-    moves, factory = synth.gauntlet_scenario(19, seed=11, device=dev)
+    moves, factory = synth._gauntlet(19, 11, (720, 1280), 19, dev)
     frames = [f.cpu().numpy() for f in factory()]
     t_render = time.perf_counter() - t0
     detected, stats = filecheck.run_runtime(frames, batch=16, device=dev)
@@ -3957,7 +3971,197 @@ def phase_app(film: dict, dev, card: str) -> dict:
              "app: the preview overlay differs between the card and the CPU")
     return {"launches": counts, "manual_launches": manual_counts,
             "fps": fps, "overlay_ms": runs, "overlay_copies_ms": copies,
-            "overlay_draw_ms": draws, "overlay_diff": diff}
+            "overlay_draw_ms": draws, "overlay_diff": diff,
+            "game": {"frames": frames, "moves": moves}}
+
+
+def _decode_fps(path: str, decoders: int) -> list[float]:
+    """Host decode alone: frames/s of ``filecheck.iter_video_frames`` over
+    the whole file, VIDEO_REPS times, sorted."""
+    from camkifu_tpu_torch import filecheck
+
+    fps = []
+    for _ in range(VIDEO_REPS):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in filecheck.iter_video_frames(path,
+                                                       decoders=decoders))
+        fps.append(n / (time.perf_counter() - t0))
+    return sorted(fps)
+
+
+def phase_video(game: dict, dev, card: str) -> dict:
+    """Video files on the card's machine, decoded on the host through cv2.
+    (a) The app's 1080p game written to mp4v, then ``ckmain.main(["-v",
+    path, "--nogui", "--gsize", "auto", ...])`` with 1 and with 4 decoders,
+    VIDEO_REPS calls each (frames/s on the host clock, the first anchor
+    included): every kifu the truth at size 19, every SGF the same, and
+    the kifu ``filecheck.run_runtime`` reads from the same decoded frames
+    in memory; the decode rate alone. (b) ``synth.gauntlet_scenario`` with
+    its mp4 round trip through ``run_runtime(batch=16)``: the exact kifu;
+    failing that, the same decoded frames read on the CPU: a CPU reading
+    that is exact where the card's is not fails the run, and where both
+    miss the gate is card = CPU (PERF.md section 7: the card's render
+    misses where the CPU's reads exactly, through either cv2 build). (c)
+    ``filecheck.check(REAL_SPEC)`` on the renderer's corners at the PASS
+    bar (the warp alone runs), then once with ``--oracle both`` (the cv2
+    oracle's agreement and the cross-agreement printed, not gated).
+    Launches are counted on the first ``ckmain`` call (path ``ckmain
+    -v``), the gauntlet and the first check."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch import ckmain, filecheck
+    from camkifu_tpu_torch.core.gamesync import score_moves
+    from camkifu_tpu_torch.gamemodel.kifu import Kifu
+    from camkifu_tpu_torch.utils import synth
+
+    truth = _moves_of(game["moves"])
+    n_frames = len(game["frames"])
+    paths, fps, decode, sgfs = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "game.mp4")
+        t0 = time.perf_counter()
+        h, w = game["frames"][0].shape[:2]
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             VIDEO_FPS, (w, h))
+        _require(vw.isOpened(), "video: cv2 cannot write mp4v here")
+        for f in game["frames"]:
+            vw.write(f[:, :, ::-1])
+        vw.release()
+        t_write = time.perf_counter() - t0
+        for decoders in VIDEO_DECODERS:
+            secs = []
+            for rep in range(VIDEO_REPS):
+                sgf = os.path.join(tmp, f"d{decoders}r{rep}.sgf")
+                first = not paths
+                if first:
+                    _reset_counts()
+                printed = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    rc = ckmain.main(["-v", path, "--nogui", "--gsize",
+                                      "auto", "--batch", str(APP_BATCH),
+                                      "--decoders", str(decoders), "--sgf",
+                                      sgf, "--device", str(dev)])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                if first:
+                    paths["ckmain -v"] = _read_counts()
+                kifu = Kifu.load(sgf)
+                with open(sgf) as fh:
+                    text = fh.read()
+                sgfs.setdefault(decoders, text)
+                lines = printed.getvalue().strip().splitlines()
+                if rep == 0:
+                    print(f"video: ckmain -v game.mp4 --decoders {decoders}"
+                          f": rc {rc}, {'; '.join(lines[:2])}, SZ "
+                          f"{kifu.gsize}, moves "
+                          f"{'= the truth' if _moves_of(kifu.moves()) == truth else '!= the truth'}",
+                          flush=True)
+                _require(rc == 0 and kifu.gsize == 19
+                         and _moves_of(kifu.moves()) == truth,
+                         f"video: ckmain -v with {decoders} decoders "
+                         f"misread the game")
+                _require(text == sgfs[decoders],
+                         f"video: a repeated ckmain -v call with {decoders} "
+                         f"decoders wrote another SGF")
+            fps[decoders] = sorted(n_frames / s for s in secs)
+        same_sgf = sgfs[VIDEO_DECODERS[0]] == sgfs[VIDEO_DECODERS[-1]]
+        frames = list(filecheck.iter_video_frames(path))
+        detected, _ = filecheck.run_runtime(frames, batch=APP_BATCH,
+                                            device=dev)
+        err = np.mean([np.abs(a.astype(np.int16) - b).mean() for a, b in
+                       zip(frames[::10], game["frames"][::10])])
+        for decoders in VIDEO_DECODERS:
+            decode[decoders] = _decode_fps(path, decoders)
+        size = os.path.getsize(path)
+    counts = paths["ckmain -v"]
+    print(f"video on {card}: {n_frames} {h}p frames written to mp4v in "
+          f"{t_write:.2f} s ({size / 2**20:.1f} MiB; decoded frames "
+          f"{err:.2f} DN from the rendered on average); ckmain -v frames/s "
+          f"(host clock, first anchor included) "
+          + "; ".join(f"{d} decoder{'s' if d > 1 else ''} "
+                      f"{_median(v):.1f} [{v[0]:.1f}, {v[-1]:.1f}]"
+                      for d, v in fps.items())
+          + "; decode alone frames/s "
+          + "; ".join(f"{d}: {_median(v):.1f} [{v[0]:.1f}, {v[-1]:.1f}]"
+                      for d, v in decode.items())
+          + f"; SGFs {'the same' if same_sgf else 'DIFFERENT'}; "
+          f"run_runtime on the decoded frames "
+          f"{'= ckmain' if _moves_of(detected) == truth else '!= ckmain'}"
+          f"; launches {counts}", flush=True)
+    _require(len(frames) == n_frames, "video: the decoder lost frames")
+    _require(same_sgf, "video: 1 and 4 decoders wrote different SGFs")
+    _require(_moves_of(detected) == truth,
+             "video: run_runtime on the decoded frames is not ckmain's kifu")
+    _require_launched(counts, "ckmain -v")
+
+    # (b) The gauntlet with its mp4 round trip.
+    t0 = time.perf_counter()
+    moves, factory = synth.gauntlet_scenario(19, seed=11, device=dev)
+    frames = list(factory())
+    t_render = time.perf_counter() - t0
+    _reset_counts()
+    detected, stats = filecheck.run_runtime(frames, batch=16, device=dev)
+    paths["gauntlet mp4"] = _read_counts()
+    rep = score_moves(detected, moves)
+    exact = _moves_of(detected) == _moves_of(moves)
+    print(f"video: gauntlet with its mp4 round trip: {len(frames)} 720p "
+          f"frames rendered and round-tripped in {t_render:.2f} s, runtime "
+          f"{stats['fps']:.1f} frames/s; agreement {rep['agreement']:.4f} "
+          f"({rep['good']}/{rep['ref_moves']}, {rep['wrong']} wrong, "
+          f"{rep['missing']} missing, {rep['extra']} extra): "
+          f"{'EXACT' if exact else 'not exact'}; launches "
+          f"{paths['gauntlet mp4']}", flush=True)
+    _require_launched(paths["gauntlet mp4"], "gauntlet mp4")
+    if not exact:
+        t0 = time.perf_counter()
+        cpu, _ = filecheck.run_runtime(frames, batch=16, device="cpu")
+        cpu_exact = _moves_of(cpu) == _moves_of(moves)
+        print(f"video: the same decoded gauntlet frames on the CPU "
+              f"({time.perf_counter() - t0:.1f} s): "
+              f"{'EXACT' if cpu_exact else 'not exact'}, "
+              f"{'= the card' if _moves_of(cpu) == _moves_of(detected) else '!= the card'}"
+              f"; first moves of each: card {_moves_of(detected)[:12]}, "
+              f"CPU {_moves_of(cpu)[:12]}", flush=True)
+        _require(not cpu_exact, "gauntlet mp4: the CPU reads the decoded "
+                 "frames exactly and the card does not")
+        _require(_moves_of(cpu) == _moves_of(detected),
+                 "gauntlet mp4: the card and the CPU read the same decoded "
+                 "frames differently")
+    del frames
+
+    # (c) The 'real' spec on the renderer's corners (the warp alone), then
+    # beside the cv2 oracle on the same corners.
+    t0 = time.perf_counter()
+    _reset_counts()
+    real = filecheck.check(REAL_SPEC, None, device=dev)
+    paths["check real"] = _read_counts()
+    t_real = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    both = filecheck.check(REAL_SPEC, None, oracle="both", device=dev)
+    print(f"video: check {REAL_SPEC}: agreement {real['agreement']:.4f} "
+          f"({real['good']}/{real['ref_moves']}), {real['frames']} frames "
+          f"read at {real['fps']:.1f} frames/s ({t_real:.1f} s with the "
+          f"render and round trip); launches {paths['check real']}. "
+          f"--oracle both ({time.perf_counter() - t0:.1f} s): port "
+          f"{both['agreement']:.4f}, cv2 {both['cv2_agreement_vs_ref']:.4f}"
+          f" at {both['cv2_fps']} frames/s, port vs cv2 "
+          f"{both['tpu_vs_cv2_agreement']:.4f}", flush=True)
+    _require(real["agreement"] >= CHECK_BAR,
+             f"check {REAL_SPEC}: agreement {real['agreement']:.4f} under "
+             f"the reference's PASS bar {CHECK_BAR}")
+    _require_warp_launched(paths["check real"], "check real")
+    return {"paths": paths, "fps": fps, "decode_fps": decode,
+            "gauntlet_exact": exact, "gauntlet_fps": stats["fps"],
+            "real_agreement": real["agreement"],
+            "port_vs_cv2": both["tpu_vs_cv2_agreement"]}
 
 
 SOURCES = {
@@ -4149,6 +4353,10 @@ def run_phases(dev, card: str) -> dict:
     paths.update({"ckmain": tapp["launches"],
                   "ckmain manual corners": tapp["manual_launches"]})
     print(f"app phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tvid = phase_video(tapp.pop("game"), dev, card)
+    paths.update(tvid["paths"])
+    print(f"video phase {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = [_kernel_entry(name, source, replaces, cases, paths)
                for name, (source, replaces) in SOURCES.items()]
     kernels[0]["lens_launches_per_path"] = lens_warps
@@ -4210,7 +4418,13 @@ def run_phases(dev, card: str) -> dict:
                         "overlay_tick_ms": tapp["overlay_ms"],
                         "overlay_copies_ms": tapp["overlay_copies_ms"],
                         "overlay_draw_ms": tapp["overlay_draw_ms"],
-                        "overlay_card_cpu_dn": tapp["overlay_diff"]}}
+                        "overlay_card_cpu_dn": tapp["overlay_diff"],
+                        "ckmain_video_fps": tvid["fps"],
+                        "video_decode_fps": tvid["decode_fps"],
+                        "gauntlet_mp4_exact": tvid["gauntlet_exact"],
+                        "gauntlet_mp4_runtime_fps": tvid["gauntlet_fps"],
+                        "check_real_agreement": tvid["real_agreement"],
+                        "port_vs_cv2_agreement": tvid["port_vs_cv2"]}}
 
 
 def main() -> int:

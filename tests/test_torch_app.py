@@ -1,14 +1,16 @@
 """The port's application layer (``ckmain``, ``glmain``) against the
 reference, on the CPU.
 
-``ckmain`` reads frames that a caller hands it as ``args.video`` (the port's
-``open_capture`` takes arrays; a camera index or a video path needs cv2
-and raises). The GUI entry points run on Tk's widget layer patched as
-tests/test_gui_headless.py patches it (the fakes are this file's own).
+``ckmain`` reads frames that a caller hands it as ``args.video``, a video
+file or a camera (through cv2, as the reference). The GUI entry points run
+on Tk's widget layer patched as tests/test_gui_headless.py patches it (the
+fakes are this file's own).
 """
 
 from __future__ import annotations
 
+import sys
+import time
 import tkinter as tk
 
 import numpy as np
@@ -143,14 +145,85 @@ def test_board_finder_auto_path_reads_the_truth(monkeypatch, tmp_path):
         [(m.color, m.row, m.col) for m in moves]
 
 
+class _Camera:
+    """Stands in for ``cv2.VideoCapture(index)``: the given RGB frames as
+    BGR, then nothing."""
+
+    def __init__(self, frames):
+        self.frames, self.i = frames, 0
+
+    def isOpened(self):
+        return True
+
+    def read(self):
+        if self.i >= len(self.frames):
+            time.sleep(0.002)
+            return False, None
+        self.i += 1
+        return True, self.frames[self.i - 1][:, :, ::-1]
+
+    def release(self):
+        pass
+
+
 @pytest.mark.parametrize("video", ["game.mp4", "0"])
-def test_a_path_or_camera_raises_naming_cv2(video):
-    """A video path or a camera index needs cv2's decoders, which the port
-    does not use: ``ckmain`` raises rather than read an empty stream (with
-    ``--gsize auto`` at the probe)."""
-    for extra in ([], ["--gsize", "auto"]):
-        with pytest.raises(NotImplementedError, match="cv2"):
-            ckmain.main(["-v", video, "--nogui", "--device", "cpu"] + extra)
+def test_a_path_or_camera_raises_naming_cv2(video, monkeypatch, tmp_path,
+                                            capsys):
+    """Without cv2, a video path or a camera index raises ``ImportError``
+    (with ``--gsize auto`` at the probe) rather than read an empty stream.
+    With it, both packages read the same: a recorded game through
+    ``--nogui --corners --sf clustering`` with one and two decoders, the
+    same printed SGF; a camera's probe frame for ``--gsize auto`` (the
+    size inference pinned), the same frame."""
+    import cv2
+
+    from camkifu_tpu.board import bf_auto as jbf_auto
+    from camkifu_tpu_torch.board import bf_auto
+
+    with monkeypatch.context() as blocked:
+        blocked.setitem(sys.modules, "cv2", None)
+        for extra in ([], ["--gsize", "auto"]):
+            with pytest.raises(ImportError, match="cv2"):
+                ckmain.main(["-v", str(tmp_path / video), "--nogui",
+                             "--device", "cpu"] + extra)
+    moves = jsynth.sample_moves(4, seed=13)
+    frames = list(_frames(moves))
+    if video == "0":
+        seen = []
+
+        def infer(frame, *a, **kw):
+            seen.append(np.asarray(frame))
+            return 13, {13: 0.5}
+
+        for module, bfm, extra in ((jckmain, jbf_auto, []),
+                                   (ckmain, bf_auto, ["--device", "cpu"])):
+            # Eight frames, the probe's batch: the ring keeps the latest.
+            monkeypatch.setattr(cv2, "VideoCapture",
+                                lambda index: _Camera(frames[:8]))
+            monkeypatch.setattr(bfm, "infer_gsize", infer)
+            args = module.get_argparser().parse_args(
+                ["-v", video, "--gsize", "auto"] + extra)
+            assert module._infer_gsize(args) == 13
+        assert len(seen) == 2 and np.array_equal(seen[1], seen[0])
+        assert np.array_equal(seen[1], frames[4])
+        return
+    path = str(tmp_path / video)
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                         (HW[1], HW[0]))
+    for f in frames:
+        vw.write(f[:, :, ::-1])
+    vw.release()
+    argv = ["-v", path, "--nogui", "--corners", _corner_arg(), "--sf",
+            "clustering", "--batch", "8"]
+    for decoders in ("1", "2"):
+        out = {}
+        for name, module, extra in (("reference", jckmain, []),
+                                    ("port", ckmain, ["--device", "cpu"])):
+            assert module.main(argv + ["--decoders", decoders] + extra) == 0
+            out[name] = capsys.readouterr().out
+        assert out["port"] == out["reference"]
+        assert out["port"].startswith(f"detected {len(moves)} moves "
+                                      f"({len(frames)} frames)\n")
 
 
 def _options(parser) -> dict:
@@ -161,12 +234,10 @@ def _options(parser) -> dict:
 
 
 def test_argparser_flags_match_the_reference():
-    """The reference's flags with their defaults, less ``--decoders`` and
-    ``--live-wait`` (each reaches only cv2), plus ``--device`` (default
-    the card)."""
+    """The reference's flags with their defaults (``--decoders``,
+    ``--live-wait`` among them), plus ``--device`` (default the card)."""
     ours, ref = _options(ckmain.get_argparser()), \
         _options(jckmain.get_argparser())
-    del ref["--decoders"], ref["--live-wait"]
     device = ours.pop("--device")
     assert ours == ref
     assert device[1] == "cuda"

@@ -3,7 +3,10 @@ reference's (camkifu_tpu/filecheck.py): ``KifuChecker``'s report and diff
 bitwise, the spec errors equal, ``check`` on a rendered game at agreement
 1.0 with the reference's report (votes on and off), ``run_pipeline`` over
 device tensors as over numpy frames, the strict neural checkpoint load,
-``main``, and the paths that need cv2 raising ``NotImplementedError``."""
+``main``, and a video file scored by the cv2 oracle (``ImportError``
+without cv2)."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -59,23 +62,51 @@ def test_spec_errors_match_the_reference(spec, sgf, kw):
     assert str(ours.value) == str(want.value)
 
 
-def test_paths_that_need_cv2_raise(tmp_path):
-    """The 'real' and 'gauntlet' specs (an mp4 round trip), a video file
-    (cv2 decode) and the cv2 oracle raise ``NotImplementedError`` naming
-    what is missing, before anything is rendered or read."""
-    sgf = tmp_path / "ref.sgf"
-    sgf.write_text("(;GM[1]FF[4]SZ[19];B[dd];W[pp])")
-    with pytest.raises(NotImplementedError, match="VideoWriter"):
-        filecheck.check("synth:3:real", None, device="cpu")
-    with pytest.raises(NotImplementedError, match="VideoWriter"):
-        filecheck.check("synth:19:gauntlet", None, device="cpu")
-    with pytest.raises(NotImplementedError, match="cv2"):
-        filecheck.check(str(tmp_path / "game.mp4"), str(sgf), device="cpu")
-    for oracle in ("cv2", "both"):
-        with pytest.raises(NotImplementedError, match="oracle_cv2"):
-            filecheck.check("synth:3", None, oracle=oracle, device="cpu")
-    with pytest.raises(NotImplementedError, match="cv2"):
-        filecheck.iter_video_frames("game.mp4")
+def test_paths_that_need_cv2_raise(tmp_path, monkeypatch):
+    """A video file (its SGF required, ``decoders`` workers) scored by the
+    cv2 oracle gives the reference's report on the same file. Without cv2,
+    the 'real' and 'gauntlet' specs (an mp4 round trip), a video file and
+    the cv2 oracle raise ``ImportError`` before a frame is read."""
+    import cv2
+
+    from camkifu_tpu.gamemodel.kifu import Kifu as JKifu
+    from camkifu_tpu.utils import synth as jsynth
+
+    hw = (360, 640)
+    moves = jsynth.sample_moves(5, seed=17)
+    video = str(tmp_path / "game.mp4")
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                         (hw[1], hw[0]))
+    for f, _ in jsynth.render_game(moves, frames_per_move=9, frame_hw=hw,
+                                   empty_leadin=2):
+        vw.write(f[:, :, ::-1])
+    vw.release()
+    sgf = str(tmp_path / "ref.sgf")
+    kifu = JKifu.new(sgf)
+    for m in moves:
+        kifu.append(m)
+    kifu.save()
+    corners = jsynth.default_corners(hw)
+    with pytest.raises(ValueError, match="reference SGF is required"):
+        filecheck.check(video, None, device="cpu")
+    for decoders in (1, 2):
+        ours = filecheck.check(video, sgf, corners=corners, oracle="cv2",
+                               decoders=decoders, device="cpu")
+        want = jfilecheck.check(video, sgf, corners=corners, oracle="cv2",
+                                decoders=decoders)
+        assert ours["agreement"] == 1.0 and ours["frames"] == 47
+        assert _without_clock(ours) == _without_clock(want)
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for spec in ("synth:3:real", "synth:19:gauntlet"):
+        with pytest.raises(ImportError, match="cv2"):
+            filecheck.check(spec, None, device="cpu")
+    with pytest.raises(ImportError, match="cv2"):
+        filecheck.check(video, sgf, device="cpu")
+    with pytest.raises(ImportError, match="cv2"):
+        filecheck.check("synth:3", None, oracle="cv2", device="cpu")
+    with pytest.raises(ImportError, match="cv2"):
+        next(filecheck.iter_video_frames(video))
 
 
 @pytest.mark.parametrize("use_meta", [True, False])

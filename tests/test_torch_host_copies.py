@@ -409,3 +409,30 @@ def test_around_cyclic_buffer_and_order_corners_match_the_reference():
     for perm in ([0, 1, 2, 3], [3, 2, 1, 0], [1, 3, 0, 2], [2, 0, 3, 1]):
         assert np.array_equal(imgutil.order_corners(pts[perm]),
                               jimgutil.order_corners(pts[perm]))
+
+
+def test_oracle_cv2_is_the_reference_on_the_port_s_host_code():
+    """``oracle_cv2`` is the reference's module, function for function,
+    with its host imports (config, ``MoveExtractor``, ``order_corners``)
+    taken from the port; tests/test_torch_oracle_cv2.py holds its
+    answers to the reference's."""
+    from camkifu_tpu import oracle_cv2 as joracle
+    from camkifu_tpu.board import boardfinder as jboardfinder
+    from camkifu_tpu_torch import oracle_cv2
+    from camkifu_tpu_torch.board import boardfinder
+
+    names = [n for n, f in vars(joracle).items()
+             if inspect.isfunction(f) and f.__module__ == joracle.__name__]
+    assert len(names) == 9
+    for name in names:
+        ours = inspect.getsource(getattr(oracle_cv2, name))
+        ref = inspect.getsource(getattr(joracle, name))
+        assert ours.replace("camkifu_tpu_torch.", "camkifu_tpu.") == ref, \
+            name
+    assert oracle_cv2.MoveExtractor is gamesync.MoveExtractor
+    assert oracle_cv2.cvconf is cvconf and oracle_cv2.guiconf is guiconf
+    assert "camkifu_tpu_torch.board.boardfinder import order_corners" in \
+        inspect.getsource(oracle_cv2.detect_corners_cv2)
+    pts = np.array([[100, 100], [10, 90], [95, 5], [12, 8]], np.float32)
+    assert np.array_equal(boardfinder.order_corners(pts),
+                          jboardfinder.order_corners(pts))

@@ -2,10 +2,11 @@
 reference test's copy), ``LiveCapture`` around an injected camera (batch
 fill, the ``max_wait_s`` partial batch, the ring, arrival times), the
 feeder carrying those arrival times, the threaded ``VManager``'s live
-latency fields, and the camera and file paths that need cv2 raising
-``NotImplementedError``."""
+latency fields, and a camera opened through cv2 (``ImportError``
+without it)."""
 
 import json
+import sys
 import threading
 import time
 
@@ -108,14 +109,42 @@ def test_live_capture_batches(module):
     assert cam.released
 
 
-def test_cv2_paths_raise():
-    with pytest.raises(NotImplementedError, match="cv2.VideoCapture"):
-        capture.LiveCapture(0)
-    for video in (0, "1"):
-        with pytest.raises(NotImplementedError, match="cv2"):
-            capture.open_capture(video)
-    with pytest.raises(NotImplementedError, match="cv2"):
-        capture.open_capture("game.mp4")
+def test_cv2_paths_raise(monkeypatch):
+    """A camera index or a video path goes through cv2: without it each
+    raises ``ImportError``; with it, a camera index opens
+    ``cv2.VideoCapture(index)`` and reads as the reference's does (the
+    same burst through ``open_capture`` with ``live_wait_s``)."""
+    import cv2
+
+    with monkeypatch.context() as blocked:
+        blocked.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError, match="cv2"):
+            capture.LiveCapture(0)
+        for video in (0, "1", "game.mp4"):
+            with pytest.raises(ImportError, match="cv2"):
+                capture.open_capture(video)
+    out = []
+    for mod in (capture, jcapture):
+        cams = []
+
+        def camera(index):
+            cams.append(_Burst(5))
+            return cams[-1]
+
+        monkeypatch.setattr(cv2, "VideoCapture", camera)
+        cap = mod.open_capture("1", live_wait_s=0.05)
+        try:
+            assert isinstance(cap, mod.LiveCapture) and cap.cap is cams[0]
+            assert cap.max_wait_s == 0.05
+            _wait_for(cap, 5)
+            out.append(cap.read_batch(5))
+        finally:
+            cap.release()
+        assert cams[0].released
+    (got, done), (ref, jdone) = out
+    assert got.shape == (5, 6, 5, 3) and done is jdone is False
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, np.stack(_Burst(5).frames)[..., ::-1])
 
     class Closed(_Burst):
         def isOpened(self):

@@ -7,6 +7,7 @@ and grid helpers. Every state is held bitwise equal.
 """
 
 import itertools
+import sys
 import time
 
 import jax.numpy as jnp
@@ -413,7 +414,7 @@ def test_pad_batch_matches_the_reference():
         assert n == jn and np.array_equal(got, ref)
 
 
-def test_array_capture_matches_the_reference():
+def test_array_capture_matches_the_reference(tmp_path, monkeypatch):
     frames = [np.full((6, 4, 3), i, np.uint8) for i in range(11)]
     cap = capture.ArrayCapture(frames, bounds=(0.25, 0.75))
     jcap = jcapture.ArrayCapture(frames, bounds=(0.25, 0.75))
@@ -425,11 +426,33 @@ def test_array_capture_matches_the_reference():
         c.set_position(0.5)
     assert cap.get_position() == jcap.get_position()
     assert np.array_equal(cap.read_batch(2)[0], jcap.read_batch(2)[0])
-    with pytest.raises(NotImplementedError, match="cv2"):
-        capture.open_capture("game.mp4")
-    with pytest.raises(NotImplementedError, match="cv2"):
-        capture.open_capture(0)
     assert isinstance(capture.open_capture(frames), capture.ArrayCapture)
+    # A path is a video file, decoded through cv2 (ImportError without it):
+    # the same decoder as the reference's for one and for two workers.
+    import cv2
+
+    path = str(tmp_path / "game.mp4")
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (16, 8))
+    for f in frames:
+        vw.write(np.repeat(np.repeat(f, 4, 1), 4, 0)[:8, :16])
+    vw.release()
+    for decoders in (1, 2):
+        ours = capture.open_capture(path, (0.25, 0.75), decoders=decoders)
+        ref = jcapture.open_capture(path, (0.25, 0.75), decoders=decoders)
+        try:
+            assert type(ours).__name__ == type(ref).__name__
+            assert ours.frame_size == ref.frame_size == (4, 16)
+            (got, done), (want, jdone) = ours.read_batch(16), \
+                ref.read_batch(16)
+            assert done == jdone and got.shape == (11, 4, 16, 3)
+            assert np.array_equal(got, want)
+        finally:
+            ours.release()
+            ref.release()
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for video in (path, 0):
+        with pytest.raises(ImportError, match="cv2"):
+            capture.open_capture(video)
 
 
 def test_batch_stats_records_match_the_reference(tmp_path, monkeypatch):

@@ -3,8 +3,10 @@
 timing hazard (flicker, white-balance drift, variable frame rate, removal
 lag, the hand, a resting arm, a moving camera with rolling shutter) equal
 the reference's, frame for frame; the samplers' moves and the gauntlet's
-kifu equal; the gauntlet's mp4 round trip raises, and without it the
-scenario renders."""
+kifu equal; the gauntlet renders and its factory ends with the mp4 round
+trip."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -90,20 +92,33 @@ def test_game_states_match_the_reference():
 
 
 @pytest.mark.parametrize("gsize", [19, 13, 9])
-def test_gauntlet_scenario_moves_and_its_round_trip(gsize):
-    """The scenario's kifu equals the reference's; the mp4 round trip
-    raises naming cv2's codec, and the factory, which goes without it,
-    yields the rendered game at the scenario's size."""
+def test_gauntlet_scenario_moves_and_its_round_trip(gsize, monkeypatch):
+    """The scenario's kifu equals the reference's; its factory yields the
+    rendered game (at the scenario's size) through the mp4 round trip, as
+    the reference's does: here the first frames, with the round trip
+    recorded."""
     moves, _ = synth.gauntlet_scenario(19, seed=11, gsize=gsize,
                                        device="cpu")
     jmoves, _ = jsynth.gauntlet_scenario(19, seed=11, gsize=gsize)
     assert _moves_of(moves) == _moves_of(jmoves)
-    with pytest.raises(NotImplementedError, match="VideoWriter"):
-        synth.encode_roundtrip(iter(()))
-    _, raw = synth.gauntlet_scenario(19, seed=11, gsize=gsize,
-                                     frame_hw=HW, device="cpu")
+    for mod in (synth, jsynth):
+        with pytest.raises(RuntimeError, match="got no frames"):
+            mod.encode_roundtrip(iter(()))
+    _, raw = synth._gauntlet(19, 11, HW, gsize, "cpu")
     first = next(raw())
     assert first.dtype == torch.uint8 and tuple(first.shape) == (*HW, 3)
+    seen = []
+
+    def roundtrip(frames, **kw):
+        seen.append(kw)
+        return [f.numpy() for f in itertools.islice(frames, 2)]
+
+    monkeypatch.setattr(synth, "encode_roundtrip", roundtrip)
+    _, factory = synth.gauntlet_scenario(19, seed=11, gsize=gsize,
+                                         frame_hw=HW, device="cpu")
+    got = list(factory())
+    assert seen == [{}] and len(got) == 2
+    assert np.array_equal(got[0], first.numpy())
 
 
 def test_moves_from_sgf(tmp_path):
