@@ -1,8 +1,12 @@
 // Fused edge magnitudes: separable Gaussian blur, 3x3 Sobel, magnitude and
-// 4-sector non-maximum suppression of float32 (N, H, W) gray images, with
-// zeros within `border` pixels of the image edge. Replaces the Pallas
-// kernel camkifu_tpu/ops/pallas/edge_kernel.py:edge_magnitude (and its
-// batch-grid twin edge_magnitude_batch).
+// 4-sector non-maximum suppression of float32 (N, H, W) gray images.
+// Replaces the Pallas kernel camkifu_tpu/ops/pallas/edge_kernel.py:
+// edge_magnitude (and its batch-grid twin edge_magnitude_batch), with the
+// boundary of the reference's XLA route (camkifu_tpu/ops/edges.py, which
+// the reference takes on every backend but the TPU): the blur and the
+// Sobel pad each stage's input with its edge values and the NMS takes its
+// neighbours across the image, where the Pallas kernel zeroes a band
+// (board detection near the frame's edge reads those edges).
 //
 // What bounds it: 8 bytes a pixel against about 55 floating operations,
 // so device memory (0.020 ms for 128 maps of 256x256 on an H100). What
@@ -32,11 +36,11 @@
 // A strip computes valid results for its columns [HALO, LOADED - HALO)
 // and stores [MARGIN, LOADED - MARGIN); strips start at multiples of
 // LOADED - 2 * MARGIN, a multiple of 4, so a lane loads and stores aligned
-// 16-byte words where the row length allows. The first and last strip
-// also store the zero band at the image's sides, which needs border >=
-// MARGIN; rows of the band are stored as zeros without computing, so no
-// row index is ever clamped. Columns right of the image clamp to its last
-// column; they reach only the band.
+// 16-byte words where the row length allows. The walks store nothing
+// within `border` >= MARGIN pixels of the image's edge, so no row index is
+// ever clamped and columns right of the image, clamped to its last
+// column, reach no stored pixel. Two more launches fill that band
+// (`band_blur_kernel`, `band_nms_kernel` below).
 //
 // The stages follow camkifu_tpu/ops/filters.py and ops/edges.py term by
 // term (axis-0 pass first, the same tap order, the Sobel's sums in the
@@ -83,7 +87,6 @@ struct Strip {
   int w;
   int off[COLS];       // column offsets from ld, clamped into the image
   unsigned own;        // bit c: this strip stores the lane's column c
-  unsigned inside;     // bit c: column c lies outside the zero band
   bool vec_ld, vec_st; // the lane's columns as 16-byte words
 };
 
@@ -220,8 +223,7 @@ static __device__ __forceinline__ void step(Strip& s, const Taps& taps, int i,
                           : (odd ? k.mw[B0][j - 1] : k.mw[B1][j - 1]);
     const float n2 = high ? (odd ? k.mw[B2][j - 1] : k.mw[B2][j])
                           : (odd ? k.mw[B2][j + 1] : k.mw[B1][j + 1]);
-    const bool keep = m >= n1 && m >= n2 && (s.inside >> c & 1u);
-    out[c] = keep ? m : 0.0f;
+    out[c] = m >= n1 && m >= n2 ? m : 0.0f;
   }
   store_row(s, out);
 }
@@ -231,30 +233,27 @@ static __device__ __forceinline__ void walk(
     const float* __restrict__ img, float* __restrict__ out, int h, int w,
     int border, int strips, int rows, int strip, int seg, int lane,
     const Taps& taps) {
-  // Output rows of the segment: zero band, computed, zero band.
+  // Output rows of the segment outside the band.
   const int y_lo = seg * rows, y_hi = min(h, y_lo + rows);
   const int c_lo = min(max(y_lo, border), y_hi);
   const int c_hi = w > 2 * border ? max(c_lo, min(y_hi, h - border)) : c_lo;
 
   Strip s;
   const int col = strip * STORED + lane * COLS;
-  const int own_lo = strip == 0 ? 0 : strip * STORED + MARGIN;
-  const int own_hi = strip == strips - 1 ? w : strip * STORED + MARGIN + STORED;
+  const int own_lo = max(border, strip * STORED + MARGIN);
+  const int own_hi = min(w - border, strip * STORED + MARGIN + STORED);
   const bool vec = (w & 3) == 0 && (((size_t)img | (size_t)out) & 15) == 0;
   s.w = w;
-  s.own = s.inside = 0;
+  s.own = 0;
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
     s.off[c] = min(col + c, w - 1) - col;
-    if (col + c >= own_lo && col + c < min(own_hi, w)) s.own |= 1u << c;
-    if (col + c >= border && col + c < w - border) s.inside |= 1u << c;
+    if (col + c >= own_lo && col + c < own_hi) s.own |= 1u << c;
   }
   s.vec_ld = vec && col + COLS <= w;
   s.vec_st = vec;
-  s.st = out + (size_t)y_lo * w + col;
+  s.st = out + (size_t)c_lo * w + col;
 
-  const float zeros[COLS] = {};
-  for (int y = y_lo; y < c_lo; ++y) store_row(s, zeros);
   if (c_lo < c_hi) {
     // Input rows c_lo - HALO .. c_hi - 1 + HALO, AHEAD of them in flight.
     const int steps = c_hi - c_lo + 2 * HALO;
@@ -279,7 +278,6 @@ static __device__ __forceinline__ void walk(
     }
 #undef EDGE_STEP
   }
-  for (int y = c_hi; y < y_hi; ++y) store_row(s, zeros);
 }
 };  // Design
 
@@ -299,6 +297,130 @@ edge_kernel(const float* __restrict__ img, float* __restrict__ out, int n,
 using Narrow = Design<4, 6>;
 using Wide = Design<8, 3>;
 
+// The pixels of a map within `d` of its edge (min(y, h-1-y, x, w-1-x) < d),
+// numbered compactly: the full rows at the top and the bottom, then the
+// rows between them, each with its d columns at either side.
+struct Ring {
+  int w, top, bot, left, right, full, side;
+  __device__ Ring(int h, int w_, int d)
+      : w(w_), top(min(d, h)), bot(max(min(d, h), h - d)), left(min(d, w_)),
+        right(max(min(d, w_), w_ - d)) {
+    full = top + (h - bot);
+    side = left + (w - right);
+  }
+  __device__ int size() const { return full * w + (bot - top) * side; }
+  __device__ int index(int y, int x) const {
+    if (y < top) return y * w + x;
+    if (y >= bot) return (top + y - bot) * w + x;
+    return full * w + (y - top) * side + (x < left ? x : left + x - right);
+  }
+  __device__ void pixel(int i, int& y, int& x) const {
+    if (i < full * w) {
+      y = i / w;
+      x = i - y * w;
+      if (y >= top) y += bot - top;
+    } else {
+      i -= full * w;
+      y = top + i / side;
+      x = i % side;
+      if (x >= left) x += right - left;
+    }
+  }
+};
+
+constexpr int BAND_THREADS = 256;
+
+__host__ __device__ inline int ring_size(int h, int w, int d) {
+  const int ih = max(0, h - 2 * d), iw = max(0, w - 2 * d);
+  return h * w - ih * iw;
+}
+
+// Scratch floats a map: the blur on the ring the gradients read.
+__host__ __device__ inline int band_floats(int h, int w, int border) {
+  return ring_size(h, w, border + 2);
+}
+
+// The band: every pixel within `border` of the map's edge, with the plain
+// version's boundary rule: the blur and the Sobel pad each stage's input
+// with its edge values (input rows, then blurred columns, then blurred
+// rows and smoothed columns are clamped into the map), the NMS takes its
+// neighbours around the map. Two launches, a thread a pixel and the maps
+// on grid y, each value summed term by term in the walk's order. The
+// first blurs the ring the second reads into `scratch`, each blurred
+// pixel from its 9 x 9 inputs; the second takes the gradients of the
+// pixel and of its two NMS neighbours from it.
+__global__ void __launch_bounds__(BAND_THREADS)
+band_blur_kernel(const float* __restrict__ img, float* __restrict__ scratch,
+                 int h, int w, int border, Taps taps) {
+  const Ring rb(h, w, border + 2);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rb.size()) return;
+  img += (size_t)blockIdx.y * h * w;
+  int y, x;
+  rb.pixel(i, y, x);
+  int rows[TAPS];
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) rows[t] = min(max(y - RAD + t, 0), h - 1) * w;
+  float v = 0.0f;
+#pragma unroll
+  for (int j = 0; j < TAPS; ++j) {
+    const int c = min(max(x - RAD + j, 0), w - 1);
+    float a = tap(taps, 0) * __ldg(img + rows[0] + c);
+#pragma unroll
+    for (int t = 1; t < TAPS; ++t) a = a + tap(taps, t) * __ldg(img + rows[t] + c);
+    v = j == 0 ? tap(taps, 0) * a : v + tap(taps, j) * a;
+  }
+  scratch[(size_t)blockIdx.y * band_floats(h, w, border) + i] = v;
+}
+
+__global__ void __launch_bounds__(BAND_THREADS)
+band_nms_kernel(const float* __restrict__ scratch, float* __restrict__ out,
+                int h, int w, int border) {
+  const Ring rb(h, w, border + 2), ro(h, w, border);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ro.size()) return;
+  const float* const b = scratch + (size_t)blockIdx.y * rb.size();
+  out += (size_t)blockIdx.y * h * w;
+  int y, x;
+  ro.pixel(i, y, x);
+  auto at = [&](int yy, int xx) {
+    return __ldg(b + rb.index(min(max(yy, 0), h - 1), min(max(xx, 0), w - 1)));
+  };
+  // Gradients of (yy, xx) from the blurred 3 x 3 around it, clamped.
+  auto grad = [&](int yy, int xx, float& gx, float& gy) {
+    const int yn = max(yy - 1, 0), ys = min(yy + 1, h - 1);
+    const int xw = max(xx - 1, 0), xe = min(xx + 1, w - 1);
+    const float se = (at(yn, xe) + 2.0f * at(yy, xe)) + at(ys, xe);
+    const float sw = (at(yn, xw) + 2.0f * at(yy, xw)) + at(ys, xw);
+    const float dw = at(ys, xw) - at(yn, xw);
+    const float dc = at(ys, xx) - at(yn, xx);
+    const float de = at(ys, xe) - at(yn, xe);
+    gx = se - sw;
+    gy = (dw + 2.0f * dc) + de;
+  };
+  auto mag = [&](int yy, int xx) {
+    float gx, gy;
+    grad(yy, xx, gx, gy);
+    return sqrtf(gx * gx + gy * gy);
+  };
+  float gx, gy;
+  grad(y, x, gx, gy);
+  const float m = sqrtf(gx * gx + gy * gy);
+  const float ax = fabsf(gx), ay = fabsf(gy);
+  const unsigned sec = ay < T1 * ax ? 0u
+                       : (ay > T2 * ax ? 2u : (gx * gy >= 0.0f ? 1u : 3u));
+  // Neighbours as torch.roll's: sector 0 west and east, 1 north-west and
+  // south-east, 2 north and south, 3 north-east and south-west. Chosen
+  // first, so that a warp computes two magnitudes whatever its sectors.
+  const int yn = y == 0 ? h - 1 : y - 1, ys = y == h - 1 ? 0 : y + 1;
+  const int xw = x == 0 ? w - 1 : x - 1, xe = x == w - 1 ? 0 : x + 1;
+  const int x1 = sec <= 1 ? xw : (sec == 2 ? x : xe);
+  const int x2 = sec <= 1 ? xe : (sec == 2 ? x : xw);
+  const float n1 = mag(sec == 0 ? y : yn, x1);
+  const float n2 = mag(sec == 0 ? y : ys, x2);
+  out[(size_t)y * w + x] = m >= n1 && m >= n2 ? m : 0.0f;
+}
+
 }  // namespace
 
 CAMKIFU_API int camkifu_edge_taps() { return TAPS; }
@@ -309,14 +431,21 @@ CAMKIFU_API int camkifu_edge_strip(int cols) {
   return cols == 4 ? Narrow::STORED : cols == 8 ? Wide::STORED : 0;
 }
 
+// Scratch floats the band takes a map, for `border`.
+CAMKIFU_API int camkifu_edge_scratch(int h, int w, int border) {
+  return band_floats(h, w, border);
+}
+
 // `cols` columns a lane (4 or 8) and `rows` output rows a segment; every
-// (image, strip, segment) is a warp. `taps_host` holds the TAPS taps, which
-// must be symmetric.
-CAMKIFU_API int camkifu_edge(const void* img, void* out, int n, int h, int w,
-                             int border, int cols, int rows,
+// (image, strip, segment) is a warp. Then the band within `border` of the
+// edge, through `scratch` (n * camkifu_edge_scratch floats).
+// `taps_host` holds the TAPS taps, which must be symmetric.
+CAMKIFU_API int camkifu_edge(const void* img, void* out, void* scratch, int n,
+                             int h, int w, int border, int cols, int rows,
                              const float* taps_host, void* stream) {
   const int stored = camkifu_edge_strip(cols);
-  if (border < MARGIN || rows < 1 || !stored) return (int)cudaErrorInvalidValue;
+  if (border < MARGIN || rows < 1 || !stored || n > 65535)
+    return (int)cudaErrorInvalidValue;
   Taps taps;
   for (int t = 0; t <= RAD; ++t) {
     if (taps_host[t] != taps_host[2 * RAD - t])
@@ -329,8 +458,19 @@ CAMKIFU_API int camkifu_edge(const void* img, void* out, int n, int h, int w,
   const long blocks = (items + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   auto kernel = cols == 4 ? edge_kernel<4, 6> : edge_kernel<8, 3>;
-  kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-      (const float*)img, (float*)out, n, h, w, border, strips, rows, segs,
-      taps);
+  if (blocks > 0)
+    kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+        (const float*)img, (float*)out, n, h, w, border, strips, rows, segs,
+        taps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n < 1) return (int)err;
+  const dim3 blur_grid((ring_size(h, w, border + 2) + BAND_THREADS - 1) /
+                           BAND_THREADS, n);
+  band_blur_kernel<<<blur_grid, BAND_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)img, (float*)scratch, h, w, border, taps);
+  const dim3 nms_grid((ring_size(h, w, border) + BAND_THREADS - 1) /
+                          BAND_THREADS, n);
+  band_nms_kernel<<<nms_grid, BAND_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)scratch, (float*)out, h, w, border);
   return (int)cudaGetLastError();
 }

@@ -22,8 +22,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("warp.cu", "edge.cu", "hough.cu", "hysteresis.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("warp.cu", "edge.cu", "hough.cu", "hysteresis.cu",
+           "pcg_normal.cu")
+HEADERS = ("common.cuh", "ziggurat_tables.cuh")
 BUILD_DIR = _PKG.parent / "build" / "camkifu_kernels"
 
 #: ``--fmad=false`` keeps every product and sum rounding on its own, as
@@ -36,17 +37,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     "camkifu_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "camkifu_warp_lens": [_P, _P, _I, _P, _I, _F, _F, _F, _F, _F, _P, _I,
                           _I, _I, _I, _I, _I, _F, _P],
-    "camkifu_edge": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_F),
-                     _P],
+    "camkifu_edge": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     ctypes.POINTER(_F), _P],
+    "camkifu_edge_scratch": [_I, _I, _I],
     "camkifu_edge_taps": [],
     "camkifu_edge_strip": [_I],
     "camkifu_hysteresis": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _I, _P],
     "camkifu_hough": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _P],
+    "camkifu_pcg_normal": [_P, _P, _I, _U64, _U64, _U64, _U64, _I, _D, _F,
+                           _F, _P, _P],
+    "camkifu_pcg_normal_scratch": [_I],
 }
 
 _lib: ctypes.CDLL | None = None

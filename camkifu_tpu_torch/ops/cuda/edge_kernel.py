@@ -15,11 +15,18 @@ neighbours come from the next lanes by shuffles. No shared memory, no
 block-wide sync. ``auto_plan`` picks the strip width and the segments'
 length from the batch and the card: a pair of maps is cut into many short
 walks of narrow strips, a batch of 128 into few long ones of wide strips.
+The walks store nothing within ``BORDER`` px of the edge; two more
+launches of the same call compute that band, a thread a pixel: the blur
+of a ring 2 px wider into a small scratch buffer, then the gradients and
+the NMS, each value term by term as the walk does.
 
 Contract (both versions): (N, H, W) or (H, W) float32 gray in [0, 1] →
-the same shape of NMS magnitudes, zero within ``BORDER`` px of the edge;
-exact in the interior, where the stencils (radius 6 ≤ BORDER) never reach
-the padding.
+the same shape of NMS magnitudes, with the boundary of the reference's
+XLA route (``camkifu_tpu/ops/edges.py``, its path on every backend but
+the TPU): blur and Sobel pad each stage's input with its edge values, the
+NMS neighbours wrap around the map. The Pallas kernel instead zeroes a
+band of ``BORDER`` px, which hides a board's outer lines where the camera
+frames it close to the edge. The kernel is bitwise the plain version.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from camkifu_tpu_torch.ops.edges import nms_magnitude
 from camkifu_tpu_torch.ops.filters import gaussian_blur, \
     gaussian_kernel1d, sobel
 
+#: Pixels from the edge that the walks leave to the band's launches.
 BORDER = 8
 
 #: Kernel launches since the last reset (one per call on a CUDA tensor).
@@ -100,6 +108,14 @@ def _ready(sigma: float):
     return lib, (ctypes.c_float * len(taps))(*taps.tolist())
 
 
+def band_scratch(n: int, h: int, w: int, device) -> torch.Tensor:
+    """The scratch buffer the kernel's band takes for ``n`` maps of
+    (h, w), on ``device``'s current stream."""
+    per_map = _build.lib().camkifu_edge_scratch(h, w, BORDER)
+    return torch.empty(max(1, n * per_map), dtype=torch.float32,
+                       device=device)
+
+
 def edge_magnitude(gray: torch.Tensor, sigma: float = 1.4) -> torch.Tensor:
     """The CUDA kernel. ``gray`` must be a contiguous float32 CUDA tensor."""
     global launches
@@ -115,9 +131,11 @@ def edge_magnitude(gray: torch.Tensor, sigma: float = 1.4) -> torch.Tensor:
     out = torch.empty_like(x)
     if n and h and w:
         cols, rows = auto_plan(n, h, w, x.device)
+        scratch = band_scratch(n, h, w, x.device)
         with torch.cuda.device(x.device):
-            code = lib.camkifu_edge(x.data_ptr(), out.data_ptr(), n, h, w,
-                                    BORDER, cols, rows, taps,
+            code = lib.camkifu_edge(x.data_ptr(), out.data_ptr(),
+                                    scratch.data_ptr(), n, h, w, BORDER,
+                                    cols, rows, taps,
                                     _build.stream_handle(x.device))
         _build.check(code, "edge")
         launches += 1
@@ -129,10 +147,4 @@ def edge_magnitude_ref(gray: torch.Tensor, sigma: float = 1.4) -> torch.Tensor:
     """Plain PyTorch version of the kernel's contract, on any device."""
     _check(gray)
     gx, gy = sobel(gaussian_blur(gray, sigma))
-    mag = nms_magnitude(gx, gy)
-    h, w = mag.shape[-2:]
-    rows = torch.arange(h, device=mag.device)[:, None]
-    cols = torch.arange(w, device=mag.device)[None, :]
-    interior = ((rows >= BORDER) & (rows < h - BORDER)
-                & (cols >= BORDER) & (cols < w - BORDER))
-    return torch.where(interior, mag, 0.0)
+    return nms_magnitude(gx, gy)

@@ -70,10 +70,10 @@ def edge_map_batch(grays: torch.Tensor, sigma: float = 1.4,
                    hysteresis_iters: int = 4) -> torch.Tensor:
     """``edge_map`` over a batch: (N, H, W) gray in [0, 1] → (N, H, W).
 
-    On a CUDA tensor blur+Sobel+NMS run as the fused kernel, one launch for
-    all N, which zeroes an 8-px border band, and the hysteresis as one more
-    launch; on the CPU both run as plain tensor ops, with edge padding and
-    no band, the route the reference takes off the TPU. Thresholds are
+    On a CUDA tensor blur+Sobel+NMS run as the fused kernel, one call for
+    all N, and the hysteresis as one more launch; on the CPU both run as
+    plain tensor ops. Both give the route the reference takes off the TPU:
+    edge padding, NMS neighbours wrapped, no border band. Thresholds are
     fractions of each frame's own 99.5th percentile of a 2×-strided view,
     read on the device; the kernel takes at most
     ``hysteresis_kernel.MAX_ITERS`` steps.

@@ -36,10 +36,11 @@ The cv2 drawing calls become:
 cv2's own calls round their results to uint8 and the reference's numpy
 stages truncate; each stage keeps its own.
 
-Departure: the per-pixel sensor noise (``noise``, ``shot_noise``), the
-last draw of a frame's ``default_rng(seed)``, is drawn on the device from a
-``torch.Generator`` seeded with the frame's seed: no later draw depends on
-it, and a 720p frame would otherwise draw 2.76 M numbers on the host.
+The per-pixel sensor noise (``noise``, ``shot_noise``), the last draw of
+a frame's ``default_rng(seed)``, is numpy's own draw on either device: the
+generator's state at that point goes to ``ops.cuda.pcg_normal_kernel``,
+whose kernel draws the same normals on the card, bit for bit, and whose
+plain version is numpy's draw itself on the CPU.
 ``encode_roundtrip`` is the reference's mp4 round trip through cv2's video
 writer and reader, on the host; it imports cv2 when it is called.
 """
@@ -56,6 +57,7 @@ from camkifu_tpu_torch.config import guiconf
 from camkifu_tpu_torch.core.feeder import to_device
 from camkifu_tpu_torch.gamemodel.move import B, W, Move
 from camkifu_tpu_torch.gamemodel.rules import RuleUnsafe
+from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel
 from camkifu_tpu_torch.utils.raster import AA_REACH, _disc, _pixel_grid
 
 WOOD = (193, 154, 107)       # RGB board wood
@@ -674,13 +676,12 @@ def render_frame(labels: np.ndarray, corners: np.ndarray | None = None,
         frame = _white_balance(frame.to(torch.float32), white_balance)
     if shot_noise or noise:
         # Read-noise floor (``noise``), plus signal-dependent photon shot
-        # noise: std grows with sqrt(intensity). Drawn on the device.
-        f = frame.to(torch.float32)
-        gen = torch.Generator(device=device).manual_seed(int(seed))
-        std = torch.sqrt(noise * noise + shot_noise * f) if shot_noise \
-            else noise
-        frame = _u8(f + torch.randn(f.shape, generator=gen, device=device)
-                    * std)
+        # noise: std grows with sqrt(intensity). numpy's draw from the
+        # frame's generator, on the card by the kernel.
+        st = rng.bit_generator.state["state"]
+        frame = pcg_normal_kernel.sensor_noise(
+            frame.contiguous(), st["state"], st["inc"], float(noise),
+            float(shot_noise))
     return frame, corners
 
 

@@ -59,6 +59,7 @@ MODULES = [
     "camkifu_tpu_torch.ops.cuda.edge_kernel",
     "camkifu_tpu_torch.ops.cuda.hough_kernel",
     "camkifu_tpu_torch.ops.cuda.hysteresis_kernel",
+    "camkifu_tpu_torch.ops.cuda.pcg_normal_kernel",
     "camkifu_tpu_torch.ops.edges",
     "camkifu_tpu_torch.utils",
     "camkifu_tpu_torch.utils.still",

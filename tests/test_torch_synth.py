@@ -4,8 +4,8 @@ calls the reference makes: each primitive against its cv2 call, the
 canonical board and camera frames at 360×640 for each option group with
 the sensor noise off (corners bitwise, images within a stated mean and 99th
 percentile of absolute difference), the labels that ``read_board_batch``
-reads from either render, and the device-drawn sensor noise's statistics
-against the reference's.
+reads from either render, and the frames with the sensor noise on (numpy's
+draw from the frame's own generator, as the reference's).
 
 Tolerances, in DN (0–255), measured on these inputs with margin:
 - anti-aliased rims: cv2 fills circles as 72-gons (4-gons under radius 3)
@@ -280,27 +280,33 @@ def test_read_board_batch_reads_the_same_labels_from_either_render():
     assert np.array_equal(read[0].numpy(), labels)
 
 
-@pytest.mark.parametrize("noise, shot", [(3.0, 0.0), (3.0, 0.4)])
-def test_device_noise_statistics(noise, shot):
-    """The device-drawn sensor noise against the reference's host draw:
-    the mean and standard deviation of (noisy − clean) agree to 0.05 DN
-    (both truncate, so both means sit near −0.5), and a frame's seed fixes
-    its noise."""
-    labels = _labels()
-    kw = dict(shot_noise=shot, stone_jitter=0.07)
+NOISY = {"read noise": dict(noise=3.0),
+         "shot noise": dict(noise=3.0, shot_noise=0.4),
+         "shot noise alone": dict(noise=0.0, shot_noise=0.6)}
 
-    def moments(render, **dev):
-        clean = render(labels, frame_hw=HW, noise=0, seed=5, **kw, **dev)[0]
-        noisy = render(labels, frame_hw=HW, noise=noise, seed=5, **kw,
-                       **dev)[0]
-        d = np.asarray(noisy, np.float64) - np.asarray(clean, np.float64)
-        return d.mean(), d.std()
 
-    ours = moments(synth.render_frame, device="cpu")
-    want = moments(jsynth.render_frame)
-    assert abs(ours[0] - want[0]) < 0.05 and abs(ours[1] - want[1]) < 0.05, \
-        (ours, want)
-    a = synth.render_frame(labels, frame_hw=HW, seed=5, device="cpu")[0]
-    b = synth.render_frame(labels, frame_hw=HW, seed=5, device="cpu")[0]
-    c = synth.render_frame(labels, frame_hw=HW, seed=6, device="cpu")[0]
-    assert torch.equal(a, b) and not torch.equal(a, c)
+@pytest.mark.parametrize("group", ["hard", "t3 + clutter"])
+@pytest.mark.parametrize("noisy", list(NOISY))
+def test_render_frame_with_noise_against_the_reference(group, noisy):
+    """With the sensor noise on, the port draws numpy's normals from the
+    frame's own generator, as the reference does: the frame stays within
+    the group's noise-free tolerance of the reference's, and its noise
+    is the reference's where the noise-free renders agree."""
+    kw = dict(GROUPS[group], **NOISY[noisy])
+    want, want_c = jsynth.render_frame(_labels(), frame_hw=HW, seed=3, **kw)
+    ours, corners = synth.render_frame(_labels(), frame_hw=HW, seed=3,
+                                       device="cpu", **kw)
+    assert np.array_equal(corners, want_c)
+    mean, p99 = _stats(ours.numpy(), want)
+    tol_mean, tol_p99 = TOLS[group]
+    assert mean < tol_mean and p99 <= tol_p99, (group, noisy, mean, p99)
+    quiet = dict(kw, noise=0.0, shot_noise=0.0)
+    same = (synth.render_frame(_labels(), frame_hw=HW, seed=3, device="cpu",
+                               **quiet)[0].numpy()
+            == jsynth.render_frame(_labels(), frame_hw=HW, seed=3,
+                                   **quiet)[0]).all(axis=-1)
+    assert same.mean() > 0.5
+    assert np.array_equal(ours.numpy()[same], want[same])
+    a = synth.render_frame(_labels(), frame_hw=HW, seed=4, device="cpu",
+                           **kw)[0]
+    assert not torch.equal(a, ours)
