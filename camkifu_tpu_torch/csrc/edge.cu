@@ -33,19 +33,30 @@
 // when a few maps leave most of the card idle. The wrapper picks the
 // width and the segments' length from the batch and the card.
 //
-// A strip computes valid results for its columns [HALO, LOADED - HALO)
-// and stores [MARGIN, LOADED - MARGIN); strips start at multiples of
-// LOADED - 2 * MARGIN, a multiple of 4, so a lane loads and stores aligned
-// 16-byte words where the row length allows. The walks store nothing
-// within `border` >= MARGIN pixels of the image's edge, so no row index is
-// ever clamped and columns right of the image, clamped to its last
-// column, reach no stored pixel. Two more launches fill that band
-// (`band_blur_kernel`, `band_nms_kernel` below).
+// A strip loads LOADED columns from a multiple of STORED = LOADED - 2 *
+// MARGIN, a multiple of 4, so a lane loads and stores aligned 16-byte
+// words where the row length allows, and stores its STORED middle
+// columns; the first strip also stores its left MARGIN and the last its
+// right one, up to the map's edge. The boundary of the plain version is
+// per stage, and the walk keeps it so in registers: input rows and
+// columns are clamped into the map as they load (the blur pads its input
+// with edge values, and its axis-0 pass is per column); the axis-1 pass
+// takes the window's own first column left of lane 0 and its last right of
+// lane 31; the Sobel takes blurred row 0 above row 0 and row h - 1 below
+// row h - 1 (the walk copies them into its window of blurred rows), and
+// smoothed column 0 left of column 0 and column w - 1 right of it. The NMS
+// takes its neighbours around the map (torch.roll), which a walk cannot
+// see on the map's outer lines: the walk writes the magnitudes of the two
+// outer lines on each side, and the outer lines' sectors, into a small
+// scratch buffer, and a second launch (`outer_nms_kernel`), a thread a
+// pixel of the outer lines, finishes the NMS there from it. That launch is
+// the walks' programmatic dependant: it is launched while they run and
+// waits for their writes (griddepcontrol).
 //
 // The stages follow camkifu_tpu/ops/filters.py and ops/edges.py term by
 // term (axis-0 pass first, the same tap order, the Sobel's sums in the
 // same order); the build disables FMA contraction and sqrtf rounds as
-// IEEE, so the interior is bitwise equal to the plain version. The
+// IEEE, so the whole map is bitwise equal to the plain version. The
 // Gaussian taps are symmetric, so taps t and 8 - t share their product.
 #include "common.cuh"
 
@@ -56,6 +67,7 @@ constexpr int TAPS = 2 * RAD + 1;
 constexpr int HALO = RAD + 2;          // blur + Sobel 1 + NMS 1
 constexpr int MARGIN = 8;              // unstored columns at a strip's sides
 constexpr int WARPS = 4;               // strips' segments a block
+constexpr int OUTER_THREADS = 256;     // the outer lines' launch
 constexpr unsigned FULL = 0xffffffffu;
 
 // tan(22.5 deg) and tan(67.5 deg), rounded to float32 as the reference's
@@ -72,11 +84,63 @@ __device__ __forceinline__ float tap(const Taps& taps, int i) {
   return taps.t[i <= RAD ? i : 2 * RAD - i];
 }
 
+__device__ __forceinline__ unsigned sector(float gx, float gy) {
+  const float ax = fabsf(gx), ay = fabsf(gy);
+  return ay < T1 * ax ? 0u : (ay > T2 * ax ? 2u : (gx * gy >= 0.0f ? 1u : 3u));
+}
+
+// A map's scratch: the magnitudes of its rows 0, 1, h - 2, h - 1 (w
+// each; a row that is two of them, in a map of 1 to 3 rows, is held once,
+// in the slot of the first of 0, h - 1, 1, h - 2 that it is), then row by
+// row those of its columns 0, 1, w - 2, w - 1 (held at each place, the
+// lane of column 0 writing the first two, that of column w - 1 the last
+// two), then the sectors of rows 0 and h - 1, then row by row those of
+// columns 0 and w - 1.
+struct Outer {
+  float* rmag;      // [4][w]
+  float* cmag;      // [h][4]
+  int* rsec;        // [2][w]
+  int* csec;        // [h][2]
+  int h, w;
+
+  // `scratch`: the map's 6 * (h + w) words.
+  __device__ Outer(float* scratch, int h_, int w_) : h(h_), w(w_) {
+    rmag = scratch;
+    cmag = col_mags(scratch, w, 0);
+    rsec = (int*)(cmag + 4 * h);
+    csec = col_secs(scratch, h, w, 0);
+  }
+  // Row y's four column magnitudes, and its two column sectors.
+  static __device__ __forceinline__ float* col_mags(float* scratch, int w,
+                                                    int y) {
+    return scratch + 4 * (w + y);
+  }
+  static __device__ __forceinline__ int* col_secs(float* scratch, int h,
+                                                  int w, int y) {
+    return (int*)scratch + 4 * (w + h) + 2 * (w + y);
+  }
+  // The slot of line y of n: the first of 0, n - 1, 1, n - 2 that it is,
+  // -1 for none.
+  static __device__ __forceinline__ int slot(int y, int n) {
+    return y == 0 ? 0 : y == n - 1 ? 3 : y == 1 ? 1 : y == n - 2 ? 2 : -1;
+  }
+  __device__ float mag(int y, int x) const {
+    const int r = slot(y, h);
+    return r >= 0 ? rmag[r * w + x] : cmag[4 * y + slot(x, w)];
+  }
+  __device__ unsigned sec(int y, int x) const {
+    const int r = slot(y, h);
+    return r == 0 || r == 3 ? rsec[(r == 3) * w + x]
+                            : csec[2 * y + (slot(x, w) == 3)];
+  }
+};
+
 // A strip width: COLS adjacent columns a lane, AHEAD input rows in flight.
 template <int COLS, int AHEAD>
 struct Design {
 static_assert(MARGIN >= HALO && MARGIN % 4 == 0 && COLS % 4 == 0 &&
-              COLS >= RAD && AHEAD % 3 == 0 && AHEAD <= 6, "layout");
+              COLS >= RAD && COLS <= 8 && AHEAD % 3 == 0 && AHEAD <= 6,
+              "layout");
 static constexpr int LOADED = 32 * COLS;
 static constexpr int STORED = LOADED - 2 * MARGIN;
 
@@ -84,17 +148,26 @@ static constexpr int STORED = LOADED - 2 * MARGIN;
 struct Strip {
   const float* ld;     // the lane's columns in the next row to load
   float* st;           // the same columns in the next row to store
-  int w;
-  int off[COLS];       // column offsets from ld, clamped into the image
+  float* scratch;      // the map's outer lines (Outer)
+  int h, w;
+  int yl;              // the next input row to load (clamped as it loads)
+  int col;             // the lane's first column
+  int re;              // w - 1 - col: the map's last column from col
   unsigned own;        // bit c: this strip stores the lane's column c
+  bool first, last;    // lane 0, lane 31
+  bool left, right;    // the lane holds the map's column 0, column w - 1
+  bool ends;           // its last column is the map's last
   bool vec_ld, vec_st; // the lane's columns as 16-byte words
 };
 
 static __device__ __forceinline__ void load_row(Strip& s, float (&v)[COLS]) {
+  const float* row = s.ld;
+  if (s.yl >= 0 && s.yl < s.h - 1) s.ld += s.w;   // rows clamped to the map
+  ++s.yl;
   if (s.vec_ld) {
 #pragma unroll
     for (int q = 0; q < COLS / 4; ++q) {
-      const float4 f = __ldg((const float4*)s.ld + q);
+      const float4 f = __ldg((const float4*)row + q);
       v[4 * q] = f.x;
       v[4 * q + 1] = f.y;
       v[4 * q + 2] = f.z;
@@ -102,25 +175,25 @@ static __device__ __forceinline__ void load_row(Strip& s, float (&v)[COLS]) {
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) v[c] = __ldg(s.ld + s.off[c]);
+    for (int c = 0; c < COLS; ++c) v[c] = __ldg(row + min(c, s.re));
   }
-  s.ld += s.w;
 }
 
 static __device__ __forceinline__ void store_row(Strip& s,
                                                  const float (&v)[COLS]) {
+  float* row = s.st;
+  s.st += s.w;
   if (s.vec_st) {
 #pragma unroll
     for (int q = 0; q < COLS / 4; ++q)
       if (s.own >> (4 * q) & 1u)
-        ((float4*)s.st)[q] =
+        ((float4*)row)[q] =
             make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
   } else {
 #pragma unroll
     for (int c = 0; c < COLS; ++c)
-      if (s.own >> c & 1u) s.st[c] = v[c];
+      if (s.own >> c & 1u) row[c] = v[c];
   }
-  s.st += s.w;
 }
 
 // The registers of a walk. The slots of nxt, bw, mw and sw are taken modulo
@@ -137,10 +210,12 @@ struct Walk {
 
 // One step of the walk: input row y arrives (step i of its segment, place
 // J of the unrolled period); blurred row y - 4, magnitude row y - 5 and
-// output row y - 6 follow as soon as the rows they need have arrived.
+// output row yo = y - 6 follow as soon as the rows they need have arrived.
+// Magnitude rows [y_lo, y_hi) of the outer lines go to `o`.
 template <int J>
 static __device__ __forceinline__ void step(Strip& s, const Taps& taps, int i,
-                                     bool more, Walk& k) {
+                                            int yo, int y_lo, int y_hi,
+                                            bool more, Walk& k) {
   float x[COLS];
 #pragma unroll
   for (int c = 0; c < COLS; ++c) x[c] = k.nxt[J % AHEAD][c];
@@ -168,8 +243,11 @@ static __device__ __forceinline__ void step(Strip& s, const Taps& taps, int i,
   for (int q = 0; q < RAD; ++q) {
     e[q] = __shfl_up_sync(FULL, e[COLS + q], 1);
     e[COLS + RAD + q] = __shfl_down_sync(FULL, e[RAD + q], 1);
+    // The window's ends stand for the map's: past them, its edge columns.
+    if (s.first) e[q] = e[RAD];
+    if (s.last) e[COLS + RAD + q] = e[COLS + RAD - 1];
   }
-  // Blur along axis 1 → blurred row y - 4 in slot J % 3.
+  // Blur along axis 1 → blurred row yb = y - 4 in slot J % 3.
   constexpr int B2 = J % 3, B0 = (J + 1) % 3, B1 = (J + 2) % 3;
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
@@ -178,11 +256,22 @@ static __device__ __forceinline__ void step(Strip& s, const Taps& taps, int i,
     for (int t = 1; t < TAPS; ++t) a = a + tap(taps, t) * e[c + t];
     k.bw[B2][c] = a;
   }
+  // The Sobel pads the blurred map with its edge rows: row -1 is row 0 and
+  // row h is row h - 1.
+  const int yb = yo + 2;
+  if (yb == 0) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) k.bw[B1][c] = k.bw[B2][c];
+  } else if (yb == s.h) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) k.bw[B2][c] = k.bw[B1][c];
+  }
   if (i < 2 * RAD + 2) return;
 
-  // Sobel (cv2 convention) of row y - 5 from blurred rows y - 6, y - 5,
-  // y - 4: the axis-0 sum and difference are per column, the axis-1 pass
-  // takes the next lanes' outer columns.
+  // Sobel (cv2 convention) of row ym = y - 5 from blurred rows y - 6,
+  // y - 5, y - 4: the axis-0 sum and difference are per column, the axis-1
+  // pass takes the next lanes' outer columns, and the map's edge columns
+  // beyond its edges.
   float sm[COLS + 2], d[COLS + 2];
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
@@ -193,25 +282,66 @@ static __device__ __forceinline__ void step(Strip& s, const Taps& taps, int i,
   d[0] = __shfl_up_sync(FULL, d[COLS], 1);
   sm[COLS + 1] = __shfl_down_sync(FULL, sm[1], 1);
   d[COLS + 1] = __shfl_down_sync(FULL, d[1], 1);
+  if (s.first) sm[0] = sm[1], d[0] = d[1];
+  if (s.ends) sm[COLS + 1] = sm[COLS], d[COLS + 1] = d[COLS];
+  if (s.right && !s.ends) {           // a map whose width is not the lanes'
+#pragma unroll
+    for (int c = 0; c < COLS - 1; ++c)
+      if (c == s.re) sm[c + 2] = sm[c + 1], d[c + 2] = d[c + 1];
+  }
   unsigned sectors = 0;
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
     const float gx = sm[c + 2] - sm[c];
     const float gy = (d[c] + 2.0f * d[c + 1]) + d[c + 2];
     k.mw[B2][c + 1] = sqrtf(gx * gx + gy * gy);
-    const float ax = fabsf(gx), ay = fabsf(gy);
-    const unsigned sec =
-        ay < T1 * ax ? 0u : (ay > T2 * ax ? 2u : (gx * gy >= 0.0f ? 1u : 3u));
-    sectors |= sec << (2 * c);
+    sectors |= sector(gx, gy) << (2 * c);
   }
   k.mw[B2][0] = __shfl_up_sync(FULL, k.mw[B2][COLS], 1);
   k.mw[B2][COLS + 1] = __shfl_down_sync(FULL, k.mw[B2][1], 1);
   k.sw[B2] = sectors;
+
+  // The outer lines' magnitudes and sectors, for the second launch: the
+  // map's rows 0, 1, h - 2, h - 1 from every lane, its columns 0, 1 from
+  // the lane of column 0 and w - 2, w - 1 from the lane of column w - 1.
+  const int ym = yo + 1;
+  if (ym >= y_lo && ym < y_hi) {
+    const int rs = Outer::slot(ym, s.h);
+    if (rs >= 0) {
+      const Outer o(s.scratch, s.h, s.w);
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        if (!(s.own >> c & 1u)) continue;
+        o.rmag[rs * s.w + s.col + c] = k.mw[B2][c + 1];
+        if (rs == 0 || rs == 3)
+          o.rsec[(rs == 3) * s.w + s.col + c] = sectors >> (2 * c) & 3u;
+      }
+    }
+    if (s.left) {
+      *(float2*)Outer::col_mags(s.scratch, s.w, ym) =
+          make_float2(k.mw[B2][1], k.mw[B2][2]);
+      Outer::col_secs(s.scratch, s.h, s.w, ym)[0] = sectors & 3u;
+    }
+    if (s.right) {
+      float last = k.mw[B2][COLS], before = k.mw[B2][COLS - 1];
+      unsigned sec = sectors >> (2 * COLS - 2);
+      if (!s.ends) {                  // a map whose width is not the lanes'
+#pragma unroll
+        for (int c = 0; c < COLS - 1; ++c)
+          if (c == s.re) last = k.mw[B2][c + 1], before = k.mw[B2][c];
+        sec = sectors >> (2 * s.re);
+      }
+      *(float2*)(Outer::col_mags(s.scratch, s.w, ym) + 2) =
+          make_float2(before, last);
+      Outer::col_secs(s.scratch, s.h, s.w, ym)[1] = sec & 3u;
+    }
+  }
   if (i < 2 * HALO) return;
 
   // NMS of row y - 6 (slot B1) against rows y - 7 (B0) and y - 5 (B2):
   // sector 0 looks west and east, 1 north-west and south-east, 2 north and
-  // south, 3 north-east and south-west.
+  // south, 3 north-east and south-west. The outer lines' neighbours wrap:
+  // the second launch overwrites them.
   float out[COLS];
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
@@ -231,194 +361,129 @@ static __device__ __forceinline__ void step(Strip& s, const Taps& taps, int i,
 // The walk of one warp: segment `seg` of strip `strip` of one image.
 static __device__ __forceinline__ void walk(
     const float* __restrict__ img, float* __restrict__ out, int h, int w,
-    int border, int strips, int rows, int strip, int seg, int lane,
-    const Taps& taps) {
-  // Output rows of the segment outside the band.
+    float* __restrict__ scratch, int strips, int rows, int strip, int seg,
+    int lane, const Taps& taps) {
   const int y_lo = seg * rows, y_hi = min(h, y_lo + rows);
-  const int c_lo = min(max(y_lo, border), y_hi);
-  const int c_hi = w > 2 * border ? max(c_lo, min(y_hi, h - border)) : c_lo;
-
   Strip s;
-  const int col = strip * STORED + lane * COLS;
-  const int own_lo = max(border, strip * STORED + MARGIN);
-  const int own_hi = min(w - border, strip * STORED + MARGIN + STORED);
-  const bool vec = (w & 3) == 0 && (((size_t)img | (size_t)out) & 15) == 0;
+  s.scratch = scratch;
+  s.h = h;
   s.w = w;
+  s.col = strip * STORED + lane * COLS;
+  s.re = w - 1 - s.col;
+  s.first = lane == 0;
+  s.last = lane == 31;
+  s.left = strip == 0 && lane == 0;
+  s.right = s.re >= 0 && s.re < COLS;
+  s.ends = s.re == COLS - 1;
+  const int own_lo = strip == 0 ? 0 : strip * STORED + MARGIN;
+  const int own_hi =
+      strip == strips - 1 ? w : min(w, strip * STORED + MARGIN + STORED);
   s.own = 0;
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
-    s.off[c] = min(col + c, w - 1) - col;
-    if (col + c >= own_lo && col + c < own_hi) s.own |= 1u << c;
+    const int x = s.col + c;
+    if (x >= own_lo && x < own_hi) s.own |= 1u << c;
   }
-  s.vec_ld = vec && col + COLS <= w;
+  const bool vec = (w & 3) == 0 && (((size_t)img | (size_t)out) & 15) == 0;
+  s.vec_ld = vec && s.col + COLS <= w;
   s.vec_st = vec;
-  s.st = out + (size_t)c_lo * w + col;
 
-  if (c_lo < c_hi) {
-    // Input rows c_lo - HALO .. c_hi - 1 + HALO, AHEAD of them in flight.
-    const int steps = c_hi - c_lo + 2 * HALO;
-    s.ld = img + (size_t)(c_lo - HALO) * w + col;
-    Walk k;
+  // Input rows y_lo - HALO .. y_hi - 1 + HALO, AHEAD of them in flight.
+  const int steps = y_hi - y_lo + 2 * HALO;
+  s.yl = y_lo - HALO;
+  s.ld = img + (size_t)min(max(s.yl, 0), h - 1) * w + s.col;
+  s.st = out + (size_t)y_lo * w + s.col;
+  Walk k;
 #pragma unroll
-    for (int j = 0; j < AHEAD; ++j) load_row(s, k.nxt[j]);
-    int i = 0;
-#define EDGE_STEP(J)                                        \
-  {                                                         \
-    if (i >= steps) break;                                  \
-    step<J>(s, taps, i, i + AHEAD < steps, k);              \
-    ++i;                                                    \
-    _Pragma("unroll") for (int c = 0; c < COLS; ++c) {      \
-      _Pragma("unroll") for (int t = 0; t < TAPS - 1; ++t)  \
-        k.acc[t][c] = k.acc[t + 1][c];                      \
-    }                                                       \
+  for (int j = 0; j < AHEAD; ++j) load_row(s, k.nxt[j]);
+  int i = 0;
+#define EDGE_STEP(J)                                                    \
+  {                                                                     \
+    if (i >= steps) break;                                              \
+    step<J>(s, taps, i, y_lo - 2 * HALO + i, y_lo, y_hi,                \
+            i + AHEAD < steps, k);                                      \
+    ++i;                                                                \
+    _Pragma("unroll") for (int c = 0; c < COLS; ++c) {                  \
+      _Pragma("unroll") for (int t = 0; t < TAPS - 1; ++t)              \
+        k.acc[t][c] = k.acc[t + 1][c];                                  \
+    }                                                                   \
   }
-    while (true) {
-      EDGE_STEP(0) EDGE_STEP(1) EDGE_STEP(2)
-      if (AHEAD > 3) { EDGE_STEP(3) EDGE_STEP(4) EDGE_STEP(5) }
-    }
+  while (true) {
+    EDGE_STEP(0) EDGE_STEP(1) EDGE_STEP(2)
+    if (AHEAD > 3) { EDGE_STEP(3) EDGE_STEP(4) EDGE_STEP(5) }
+  }
 #undef EDGE_STEP
-  }
 }
 };  // Design
 
 template <int COLS, int AHEAD>
 __global__ void __launch_bounds__(32 * WARPS)
-edge_kernel(const float* __restrict__ img, float* __restrict__ out, int n,
-            int h, int w, int border, int strips, int rows, int segs,
-            Taps taps) {
+edge_kernel(const float* __restrict__ img, float* __restrict__ out,
+            float* __restrict__ scratch, int n, int h, int w, int strips,
+            int rows, int segs, Taps taps) {
+  // The outer lines' launch may start now; it waits for this grid's end.
+  asm volatile("griddepcontrol.launch_dependents;");
   const long item = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (item >= (long)n * strips * segs) return;
-  const size_t plane = (size_t)(item / ((long)segs * strips)) * h * w;
-  Design<COLS, AHEAD>::walk(img + plane, out + plane, h, w, border, strips,
-                            rows, (int)((item / segs) % strips),
+  const int map = (int)(item / ((long)segs * strips));
+  const size_t plane = (size_t)map * h * w;
+  Design<COLS, AHEAD>::walk(img + plane, out + plane, h, w,
+                            scratch + (size_t)map * 6 * (h + w), strips, rows,
+                            (int)((item / segs) % strips),
                             (int)(item % segs), threadIdx.x & 31, taps);
 }
 
 using Narrow = Design<4, 6>;
 using Wide = Design<8, 3>;
 
-// The pixels of a map within `d` of its edge (min(y, h-1-y, x, w-1-x) < d),
-// numbered compactly: the full rows at the top and the bottom, then the
-// rows between them, each with its d columns at either side.
-struct Ring {
-  int w, top, bot, left, right, full, side;
-  __device__ Ring(int h, int w_, int d)
-      : w(w_), top(min(d, h)), bot(max(min(d, h), h - d)), left(min(d, w_)),
-        right(max(min(d, w_), w_ - d)) {
-    full = top + (h - bot);
-    side = left + (w - right);
+// The pixels of a map's outer lines: row 0, row h - 1, then columns 0 and
+// w - 1 between them.
+__host__ __device__ inline int outer_size(int h, int w) {
+  const int mid = h > 2 ? h - 2 : 0;
+  return w + (h > 1 ? w : 0) + mid + (w > 1 ? mid : 0);
+}
+
+__device__ inline void outer_pixel(int i, int h, int w, int& y, int& x) {
+  if (i < w) {
+    y = 0, x = i;
+    return;
   }
-  __device__ int size() const { return full * w + (bot - top) * side; }
-  __device__ int index(int y, int x) const {
-    if (y < top) return y * w + x;
-    if (y >= bot) return (top + y - bot) * w + x;
-    return full * w + (y - top) * side + (x < left ? x : left + x - right);
-  }
-  __device__ void pixel(int i, int& y, int& x) const {
-    if (i < full * w) {
-      y = i / w;
-      x = i - y * w;
-      if (y >= top) y += bot - top;
-    } else {
-      i -= full * w;
-      y = top + i / side;
-      x = i % side;
-      if (x >= left) x += right - left;
+  i -= w;
+  if (h > 1) {
+    if (i < w) {
+      y = h - 1, x = i;
+      return;
     }
+    i -= w;
   }
-};
-
-constexpr int BAND_THREADS = 256;
-
-__host__ __device__ inline int ring_size(int h, int w, int d) {
-  const int ih = max(0, h - 2 * d), iw = max(0, w - 2 * d);
-  return h * w - ih * iw;
+  const int mid = h > 2 ? h - 2 : 0;
+  y = 1 + (i < mid ? i : i - mid);
+  x = i < mid ? 0 : w - 1;
 }
 
-// Scratch floats a map: the blur on the ring the gradients read.
-__host__ __device__ inline int band_floats(int h, int w, int border) {
-  return ring_size(h, w, border + 2);
-}
-
-// The band: every pixel within `border` of the map's edge, with the plain
-// version's boundary rule: the blur and the Sobel pad each stage's input
-// with its edge values (input rows, then blurred columns, then blurred
-// rows and smoothed columns are clamped into the map), the NMS takes its
-// neighbours around the map. Two launches, a thread a pixel and the maps
-// on grid y, each value summed term by term in the walk's order. The
-// first blurs the ring the second reads into `scratch`, each blurred
-// pixel from its 9 x 9 inputs; the second takes the gradients of the
-// pixel and of its two NMS neighbours from it.
-__global__ void __launch_bounds__(BAND_THREADS)
-band_blur_kernel(const float* __restrict__ img, float* __restrict__ scratch,
-                 int h, int w, int border, Taps taps) {
-  const Ring rb(h, w, border + 2);
+// The NMS of the outer lines, a thread a pixel and the maps on grid y,
+// with torch.roll's neighbours from the walks' scratch. Every neighbour of
+// an outer pixel lies on one of the lines the scratch holds.
+__global__ void __launch_bounds__(OUTER_THREADS)
+outer_nms_kernel(const float* __restrict__ scratch, float* __restrict__ out,
+                 int h, int w) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the walks' writes
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rb.size()) return;
-  img += (size_t)blockIdx.y * h * w;
+  if (i >= outer_size(h, w)) return;
+  const Outer o((float*)scratch + (size_t)blockIdx.y * 6 * (h + w), h, w);
   int y, x;
-  rb.pixel(i, y, x);
-  int rows[TAPS];
-#pragma unroll
-  for (int t = 0; t < TAPS; ++t) rows[t] = min(max(y - RAD + t, 0), h - 1) * w;
-  float v = 0.0f;
-#pragma unroll
-  for (int j = 0; j < TAPS; ++j) {
-    const int c = min(max(x - RAD + j, 0), w - 1);
-    float a = tap(taps, 0) * __ldg(img + rows[0] + c);
-#pragma unroll
-    for (int t = 1; t < TAPS; ++t) a = a + tap(taps, t) * __ldg(img + rows[t] + c);
-    v = j == 0 ? tap(taps, 0) * a : v + tap(taps, j) * a;
-  }
-  scratch[(size_t)blockIdx.y * band_floats(h, w, border) + i] = v;
-}
-
-__global__ void __launch_bounds__(BAND_THREADS)
-band_nms_kernel(const float* __restrict__ scratch, float* __restrict__ out,
-                int h, int w, int border) {
-  const Ring rb(h, w, border + 2), ro(h, w, border);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= ro.size()) return;
-  const float* const b = scratch + (size_t)blockIdx.y * rb.size();
-  out += (size_t)blockIdx.y * h * w;
-  int y, x;
-  ro.pixel(i, y, x);
-  auto at = [&](int yy, int xx) {
-    return __ldg(b + rb.index(min(max(yy, 0), h - 1), min(max(xx, 0), w - 1)));
-  };
-  // Gradients of (yy, xx) from the blurred 3 x 3 around it, clamped.
-  auto grad = [&](int yy, int xx, float& gx, float& gy) {
-    const int yn = max(yy - 1, 0), ys = min(yy + 1, h - 1);
-    const int xw = max(xx - 1, 0), xe = min(xx + 1, w - 1);
-    const float se = (at(yn, xe) + 2.0f * at(yy, xe)) + at(ys, xe);
-    const float sw = (at(yn, xw) + 2.0f * at(yy, xw)) + at(ys, xw);
-    const float dw = at(ys, xw) - at(yn, xw);
-    const float dc = at(ys, xx) - at(yn, xx);
-    const float de = at(ys, xe) - at(yn, xe);
-    gx = se - sw;
-    gy = (dw + 2.0f * dc) + de;
-  };
-  auto mag = [&](int yy, int xx) {
-    float gx, gy;
-    grad(yy, xx, gx, gy);
-    return sqrtf(gx * gx + gy * gy);
-  };
-  float gx, gy;
-  grad(y, x, gx, gy);
-  const float m = sqrtf(gx * gx + gy * gy);
-  const float ax = fabsf(gx), ay = fabsf(gy);
-  const unsigned sec = ay < T1 * ax ? 0u
-                       : (ay > T2 * ax ? 2u : (gx * gy >= 0.0f ? 1u : 3u));
-  // Neighbours as torch.roll's: sector 0 west and east, 1 north-west and
-  // south-east, 2 north and south, 3 north-east and south-west. Chosen
-  // first, so that a warp computes two magnitudes whatever its sectors.
+  outer_pixel(i, h, w, y, x);
+  const unsigned sec = o.sec(y, x);
+  // Sector 0 west and east, 1 north-west and south-east, 2 north and
+  // south, 3 north-east and south-west.
   const int yn = y == 0 ? h - 1 : y - 1, ys = y == h - 1 ? 0 : y + 1;
   const int xw = x == 0 ? w - 1 : x - 1, xe = x == w - 1 ? 0 : x + 1;
   const int x1 = sec <= 1 ? xw : (sec == 2 ? x : xe);
   const int x2 = sec <= 1 ? xe : (sec == 2 ? x : xw);
-  const float n1 = mag(sec == 0 ? y : yn, x1);
-  const float n2 = mag(sec == 0 ? y : ys, x2);
-  out[(size_t)y * w + x] = m >= n1 && m >= n2 ? m : 0.0f;
+  const float m = o.mag(y, x);
+  const float n1 = o.mag(sec == 0 ? y : yn, x1);
+  const float n2 = o.mag(sec == 0 ? y : ys, x2);
+  out[((size_t)blockIdx.y * h + y) * w + x] = m >= n1 && m >= n2 ? m : 0.0f;
 }
 
 }  // namespace
@@ -431,20 +496,18 @@ CAMKIFU_API int camkifu_edge_strip(int cols) {
   return cols == 4 ? Narrow::STORED : cols == 8 ? Wide::STORED : 0;
 }
 
-// Scratch floats the band takes a map, for `border`.
-CAMKIFU_API int camkifu_edge_scratch(int h, int w, int border) {
-  return band_floats(h, w, border);
-}
+// Scratch floats a map takes: its outer lines' magnitudes and sectors.
+CAMKIFU_API int camkifu_edge_scratch(int h, int w) { return 6 * (h + w); }
 
 // `cols` columns a lane (4 or 8) and `rows` output rows a segment; every
-// (image, strip, segment) is a warp. Then the band within `border` of the
-// edge, through `scratch` (n * camkifu_edge_scratch floats).
-// `taps_host` holds the TAPS taps, which must be symmetric.
+// (image, strip, segment) is a warp. Then the outer lines' NMS, through
+// `scratch` (n * camkifu_edge_scratch floats). `taps_host` holds the TAPS
+// taps, which must be symmetric.
 CAMKIFU_API int camkifu_edge(const void* img, void* out, void* scratch, int n,
-                             int h, int w, int border, int cols, int rows,
+                             int h, int w, int cols, int rows,
                              const float* taps_host, void* stream) {
   const int stored = camkifu_edge_strip(cols);
-  if (border < MARGIN || rows < 1 || !stored || n > 65535)
+  if (rows < 1 || !stored || n > 65535 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   Taps taps;
   for (int t = 0; t <= RAD; ++t) {
@@ -457,20 +520,25 @@ CAMKIFU_API int camkifu_edge(const void* img, void* out, void* scratch, int n,
   const long items = (long)n * strips * segs;
   const long blocks = (items + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  if (n < 1) return (int)cudaSuccess;
   auto kernel = cols == 4 ? edge_kernel<4, 6> : edge_kernel<8, 3>;
-  if (blocks > 0)
-    kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-        (const float*)img, (float*)out, n, h, w, border, strips, rows, segs,
-        taps);
+  kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      (const float*)img, (float*)out, (float*)scratch, n, h, w, strips, rows,
+      segs, taps);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n < 1) return (int)err;
-  const dim3 blur_grid((ring_size(h, w, border + 2) + BAND_THREADS - 1) /
-                           BAND_THREADS, n);
-  band_blur_kernel<<<blur_grid, BAND_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)img, (float*)scratch, h, w, border, taps);
-  const dim3 nms_grid((ring_size(h, w, border) + BAND_THREADS - 1) /
-                          BAND_THREADS, n);
-  band_nms_kernel<<<nms_grid, BAND_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)scratch, (float*)out, h, w, border);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // Launched as the walks' programmatic dependant: its launch overlaps
+  // their run, and it waits for their writes (griddepcontrol.wait).
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((outer_size(h, w) + OUTER_THREADS - 1) / OUTER_THREADS,
+                     n);
+  cfg.blockDim = dim3(OUTER_THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, outer_nms_kernel,
+                                 (const float*)scratch, (float*)out, h, w);
 }

@@ -43,9 +43,9 @@ _SIGNATURES = {
     "camkifu_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "camkifu_warp_lens": [_P, _P, _I, _P, _I, _F, _F, _F, _F, _F, _P, _I,
                           _I, _I, _I, _I, _I, _F, _P],
-    "camkifu_edge": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     ctypes.POINTER(_F), _P],
-    "camkifu_edge_scratch": [_I, _I, _I],
+    "camkifu_edge": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F),
+                     _P],
+    "camkifu_edge_scratch": [_I, _I],
     "camkifu_edge_taps": [],
     "camkifu_edge_strip": [_I],
     "camkifu_hysteresis": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _I, _P],

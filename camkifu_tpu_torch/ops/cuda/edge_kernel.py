@@ -15,18 +15,21 @@ neighbours come from the next lanes by shuffles. No shared memory, no
 block-wide sync. ``auto_plan`` picks the strip width and the segments'
 length from the batch and the card: a pair of maps is cut into many short
 walks of narrow strips, a batch of 128 into few long ones of wide strips.
-The walks store nothing within ``BORDER`` px of the edge; two more
-launches of the same call compute that band, a thread a pixel: the blur
-of a ring 2 px wider into a small scratch buffer, then the gradients and
-the NMS, each value term by term as the walk does.
+The walks cover the whole map and keep the plain version's boundary stage
+by stage in registers (inputs clamped as they load, the blurred map's
+edge rows and columns repeated for the Sobel). Only the NMS of the map's
+outer lines, whose neighbours wrap around the map, is left to a second,
+small launch of the same call, a thread an outer pixel, from the outer
+lines' magnitudes that the walks write into a scratch buffer of 6 (H + W)
+words a map.
 
 Contract (both versions): (N, H, W) or (H, W) float32 gray in [0, 1] →
 the same shape of NMS magnitudes, with the boundary of the reference's
 XLA route (``camkifu_tpu/ops/edges.py``, its path on every backend but
 the TPU): blur and Sobel pad each stage's input with its edge values, the
 NMS neighbours wrap around the map. The Pallas kernel instead zeroes a
-band of ``BORDER`` px, which hides a board's outer lines where the camera
-frames it close to the edge. The kernel is bitwise the plain version.
+band of 8 px, which hides a board's outer lines where the camera frames it
+close to the edge. The kernel is bitwise the plain version.
 """
 
 from __future__ import annotations
@@ -41,9 +44,6 @@ from camkifu_tpu_torch.ops.cuda import _build
 from camkifu_tpu_torch.ops.edges import nms_magnitude
 from camkifu_tpu_torch.ops.filters import gaussian_blur, \
     gaussian_kernel1d, sobel
-
-#: Pixels from the edge that the walks leave to the band's launches.
-BORDER = 8
 
 #: Kernel launches since the last reset (one per call on a CUDA tensor).
 launches = 0
@@ -61,8 +61,10 @@ def _check(gray: torch.Tensor) -> None:
 
 
 #: Columns a lane of the kernel's two strip widths and the columns a strip
-#: of each stores (``Design<..>::STORED`` in the CUDA source).
+#: of each stores (``Design<..>::STORED`` in the CUDA source); a strip loads
+#: ``MARGIN`` more on either side.
 STRIPS = {4: 112, 8: 240}
+MARGIN = 8
 
 #: Wide strips where they give every SM at least ``WIDE_WARPS_PER_SM`` warps
 #: of ``MIN_ROWS[8]`` rows: a batch that cannot leaves schedulers idle, and
@@ -77,7 +79,7 @@ MIN_ROWS = {4: 2, 8: 4}
 
 
 def _strips(w: int, cols: int) -> int:
-    return max(1, -(-(w - 2 * BORDER) // STRIPS[cols]))
+    return max(1, -(-(w - 2 * MARGIN) // STRIPS[cols]))
 
 
 def auto_plan(n: int, h: int, w: int, device) -> tuple[int, int]:
@@ -108,10 +110,10 @@ def _ready(sigma: float):
     return lib, (ctypes.c_float * len(taps))(*taps.tolist())
 
 
-def band_scratch(n: int, h: int, w: int, device) -> torch.Tensor:
-    """The scratch buffer the kernel's band takes for ``n`` maps of
-    (h, w), on ``device``'s current stream."""
-    per_map = _build.lib().camkifu_edge_scratch(h, w, BORDER)
+def outer_scratch(n: int, h: int, w: int, device) -> torch.Tensor:
+    """The scratch buffer of the outer lines' magnitudes and sectors that
+    the kernel takes for ``n`` maps of (h, w), on ``device``."""
+    per_map = _build.lib().camkifu_edge_scratch(h, w)
     return torch.empty(max(1, n * per_map), dtype=torch.float32,
                        device=device)
 
@@ -131,12 +133,11 @@ def edge_magnitude(gray: torch.Tensor, sigma: float = 1.4) -> torch.Tensor:
     out = torch.empty_like(x)
     if n and h and w:
         cols, rows = auto_plan(n, h, w, x.device)
-        scratch = band_scratch(n, h, w, x.device)
+        scratch = outer_scratch(n, h, w, x.device)
         with torch.cuda.device(x.device):
             code = lib.camkifu_edge(x.data_ptr(), out.data_ptr(),
-                                    scratch.data_ptr(), n, h, w, BORDER,
-                                    cols, rows, taps,
-                                    _build.stream_handle(x.device))
+                                    scratch.data_ptr(), n, h, w, cols, rows,
+                                    taps, _build.stream_handle(x.device))
         _build.check(code, "edge")
         launches += 1
         sizes[n] += 1

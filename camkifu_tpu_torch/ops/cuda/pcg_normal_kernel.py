@@ -17,14 +17,16 @@ device memory once each way (2 bytes a value: 5.5 MB at 720p, 1.7 µs at
 µs at the card's INT32 rate. What makes it hard is that a normal takes a
 varying number of words (1 on the fast path, 2 for a wedge test, and a
 rejection starts again; 1 + 2m in the tail), so normal k's place in the
-word stream depends on every earlier rejection. The design cuts the stream
-into runs of 32 words, a thread each: the first launch walks the chain of
-attempts inside each run from its first 4 words and composes a warp's 32
-run tables with shuffles, one block scans the warps' tables to find each
-warp's true entry and first output, and the third launch takes each run's
-entry through its warp's prefix, draws its normals again and writes them
-(the source's header says more). The kernel draws every word twice rather
-than store it.
+word stream depends on every earlier rejection. The design is one pass
+with decoupled look-back: a block takes the next tile of 128 runs of 32
+words from a counter in scratch, draws each word once into shared memory,
+tables each run's chain of attempts from its first 4 words, composes the
+tables over the block and publishes the tile's aggregate, looks back over
+the tiles before it for its entry and first output, publishes its own
+inclusive value, and writes the frame's span of its normals from the
+buffered words (the source's header says more). The entry point zeroes
+the counter and the published values on the caller's stream before its
+one launch.
 
 Contract (both versions): ``frame`` (H, W, 3) or any shape of uint8;
 ``state`` and ``inc`` the PCG64 state's two Python ints
@@ -40,8 +42,7 @@ import torch
 
 from camkifu_tpu_torch.ops.cuda import _build
 
-#: Kernel calls since the last reset (one per call on a CUDA tensor; each
-#: call is three launches of one kernel source).
+#: Kernel launches since the last reset (one per call on a CUDA tensor).
 launches = 0
 
 _MASK64 = (1 << 64) - 1

@@ -545,12 +545,12 @@ def edge_at(x, cols: int, rows: int):
 
     n, h, w = x.shape
     out = torch.empty_like(x)
-    scratch = edge_kernel.band_scratch(n, h, w, x.device)
+    scratch = edge_kernel.outer_scratch(n, h, w, x.device)
     lib, taps = edge_kernel._ready(1.4)
     stream = _build.stream_handle(x.device)
     return lambda: _build.check(lib.camkifu_edge(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, h, w,
-        edge_kernel.BORDER, cols, rows, taps, stream), "edge")
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, h, w, cols,
+        rows, taps, stream), "edge")
 
 
 def grid_sample_case(frames, H, out_hw: tuple[int, int], scale: float,
@@ -675,27 +675,26 @@ def _check_warp(frames, H, out_hw: tuple[int, int], label: str,
 
 def _check_edge(x, label: str) -> float:
     """The edge kernel against its plain version on maps ``x`` (N, H, W):
-    bitwise equal, the border band (the band's own launches) included.
+    bitwise equal, the outer lines (the second launch's) included.
     Returns the largest difference."""
     import torch
 
     from camkifu_tpu_torch.ops.cuda import edge_kernel
-    from camkifu_tpu_torch.ops.cuda.edge_kernel import BORDER
 
     a = edge_kernel.edge_magnitude(x)
     b = edge_kernel.edge_magnitude_ref(x)
     torch.cuda.synchronize()
-    inner = (slice(None), slice(BORDER, -BORDER), slice(BORDER, -BORDER))
+    inner = (slice(None), slice(1, -1), slice(1, -1))
     same = torch.equal(a, b)
     err = float((a - b).abs().max())
     differ = int((a != b).sum())
-    band = a.clone()
-    band[inner] = 0
+    outer = a.clone()
+    outer[inner] = 0
     print(f"kernel edge{label}: max|kernel - plain| = {err:.3g}, {differ} "
           f"of {a.numel()} pixels differ, "
           f"{'bitwise equal' if same else 'NOT bitwise equal'}, "
-          f"{int((a[inner] > 0).sum())} edge pixels in the interior, "
-          f"{int((band > 0).sum())} in the band", flush=True)
+          f"{int((a[inner] > 0).sum())} edge pixels inside, "
+          f"{int((outer > 0).sum())} on the outer lines", flush=True)
     _require(same, f"edge kernel{label} is not bitwise equal to its plain "
              f"version")
     return err
@@ -1177,6 +1176,63 @@ def _rows_sweep(x) -> str:
         text += f": {cols} columns " + ", ".join(
             f"{r} {t:.4f}" for r, t in times.items())
     return text
+
+
+def launch_split(call, reps: int = KERNEL_REPS) -> dict:
+    """Device milliseconds a launch of each kernel (or memset) that
+    ``call`` launches once, by name, from ``torch.profiler`` (the mean over
+    the launches it recorded of ``reps`` calls). A profiler session may
+    leave launches slower for the rest of the process: call it after every
+    host-paced timing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0 and e.count:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            parts[name.strip().split("::")[-1]] = \
+                e.device_time_total / e.count / 1e3
+    return parts
+
+
+def phase_launch_split(dev, card: str) -> dict:
+    """The edge and noise kernels' device time by launch (``launch_split``)
+    at their paths' sizes, on seeded maps and frames, last of all phases:
+    {kernel: {shape: {launch: ms}}}."""
+    import numpy as np
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import edge_kernel
+    from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel as pk
+
+    out = {"edge": {}, "pcg_normal": {}}
+    gen = torch.Generator().manual_seed(0)
+    for n, side in ((2, 256), (8, 256), (16, 256), (128, 256), (2, 512)):
+        x = torch.rand((n, side, side), generator=gen).to(dev)
+        out["edge"][f"N = {n}, {side}²"] = launch_split(
+            lambda x=x: edge_kernel.edge_magnitude(x))
+    for hw in NOISE_HWS:
+        frame = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 256, (*hw, 3)).astype(np.uint8)).to(dev)
+        state, inc = _noise_state(0, hw)
+        for name, noise, shot in NOISE_MODES:
+            out["pcg_normal"][f"{hw[0]}p {name}"] = launch_split(
+                lambda f=frame, s=state, i=inc, nz=noise, sh=shot:
+                    pk.pcg_normal_noise(f, s, i, nz, sh))
+    for kernel, shapes in out.items():
+        for shape, parts in shapes.items():
+            print(f"launches {kernel} {shape}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in parts.items())
+                + f" ({card})", flush=True)
+    return out
 
 
 def phase_kernel_times(cases: list[dict], card: str) -> None:
@@ -4668,9 +4724,13 @@ def run_phases(dev, card: str) -> dict:
     tvid = phase_video(tapp.pop("game"), dev, card)
     paths.update(tvid["paths"])
     print(f"video phase {time.perf_counter() - t0:.1f} s", flush=True)
+    splits = phase_launch_split(dev, card)
     kernels = [_kernel_entry(name, source, replaces, cases, paths)
                for name, (source, replaces) in SOURCES.items()]
     kernels[0]["lens_launches_per_path"] = lens_warps
+    for k in kernels:
+        if k["name"] in splits:
+            k["launch_split"] = splits[k["name"]]
     return {"kernels": kernels,
             "summary": {"c1_ms": t["c1_ms"],
                         "c2_fps": BATCH / t["c2_ms"] * 1e3,
@@ -4739,9 +4799,18 @@ def run_phases(dev, card: str) -> dict:
                         "port_vs_cv2_agreement": tvid["port_vs_cv2"]}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="The port's smoke run on a "
+                                 "CUDA card.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time another checkout's edge and noise "
+                    "kernels beside this one's (tools/ab_kernels.py: DIR, "
+                    "this, this, DIR), after the phases")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs a CUDA device", file=sys.stderr)
@@ -4762,6 +4831,15 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
+    if args.parent:
+        from pathlib import Path
+
+        tool = Path(__file__).resolve().parent / "tools" / "ab_kernels.py"
+        code = subprocess.call([sys.executable, str(tool), args.parent,
+                                ".", ".", args.parent])
+        if code:
+            print(f"FAIL: tools/ab_kernels.py exited with {code}", flush=True)
+            return 1
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
           f" MiB; wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(result["summary"]), flush=True)

@@ -18,7 +18,7 @@ from camkifu_tpu.ops import edges as jedges
 from camkifu_tpu.ops import filters as jfilters
 from camkifu_tpu.ops import hough as jhough
 from camkifu_tpu.ops.color import rgb_to_gray, to_float
-from camkifu_tpu.ops.pallas.edge_kernel import edge_magnitude_batch
+from camkifu_tpu.ops.pallas.edge_kernel import BORDER, edge_magnitude_batch
 from camkifu_tpu.utils import synth
 from camkifu_tpu_torch.board import bf_auto
 from camkifu_tpu_torch.ops import edges, hough
@@ -83,7 +83,7 @@ def test_edge_magnitude_ref_batch_matches_pallas_batch_kernel():
     ours = edge_kernel.edge_magnitude_ref(_t(smalls)).numpy()
     ref = np.asarray(edge_magnitude_batch(jnp.asarray(smalls),
                                           interpret=True))
-    b = edge_kernel.BORDER
+    b = BORDER                              # the Pallas kernel's band
     inner = (slice(None), slice(b, -b), slice(b, -b))
     a, r = ours[inner], ref[inner]
     both = (a > 0) & (r > 0)

@@ -68,12 +68,12 @@ def test_edge_kernel_matches_plain():
     ours = edge_kernel.edge_magnitude(x)
     ref = edge_kernel.edge_magnitude_ref(x)
     torch.cuda.synchronize()
-    b = edge_kernel.BORDER
+    b = edge_kernel.MARGIN
     a, r = ours[:, b:-b, b:-b], ref[:, b:-b, b:-b]
     both = (a > 0) & (r > 0)
     assert float(both.sum()) >= 0.995 * float(((a > 0) | (r > 0)).sum())
     assert float((a - r)[both].abs().max()) <= 1e-4
-    # The band as the plain version computes it, edge-padded and wrapped.
+    # The edges as the plain version computes them, edge-padded and wrapped.
     assert float(ours[:, :b].abs().max()) > 0.0
     assert torch.equal(ours[:, :b], ref[:, :b])
     assert torch.equal(ours[:, :, -b:], ref[:, :, -b:])
@@ -110,7 +110,7 @@ def test_edge_kernel_batch_of_128_matches_plain():
     assert edge_kernel.launches == before + 1
     ref = edge_kernel.edge_magnitude_ref(x)
     torch.cuda.synchronize()
-    b = edge_kernel.BORDER
+    b = edge_kernel.MARGIN
     a, r = ours[:, b:-b, b:-b], ref[:, b:-b, b:-b]
     both = (a > 0) & (r > 0)
     assert float(both.sum()) >= 0.995 * float(((a > 0) | (r > 0)).sum())
@@ -158,12 +158,13 @@ def _edge_input(shape, seed):
 @pytest.mark.parametrize("shape", [
     (1, 256, 256), (2, 256, 256), (16, 256, 256), (128, 256, 256), (70, 45),
     (3, 17, 300), (2, 300, 17), (2, 40, 500), (3, 64, 257), (2, 15, 64),
-    (2, 64, 12), (1, 16, 16)])
+    (2, 64, 12), (1, 16, 16), (1, 1, 64), (1, 64, 1), (2, 3, 3)])
 def test_edge_kernel_bitwise_equal_to_plain(shape):
     """The path's batches, shapes that no strip or segment divides, rows
-    that are not 16-byte aligned, a width of more than two strips, and maps
-    under 2 * BORDER a side (the band's launch alone): ``torch.equal``
-    everywhere, band included, one counted launch."""
+    that are not 16-byte aligned, a width of more than two strips, maps
+    under 2 * MARGIN a side, one row, one column and 3 x 3:
+    ``torch.equal`` everywhere, outer lines included, one counted
+    launch."""
     dev = _device()
     x = _edge_input(shape, seed=len(shape) * 1000 + shape[-1]).to(dev)
     before = edge_kernel.launches
@@ -173,8 +174,14 @@ def test_edge_kernel_bitwise_equal_to_plain(shape):
     torch.cuda.synchronize()
     assert ours.shape == x.shape
     assert torch.equal(ours, ref)
-    b = edge_kernel.BORDER
-    assert float(ours[..., :b, :].max()) > 0.0
+    torch.cuda.set_sync_debug_mode("error")     # a warm call never waits
+    try:
+        again = edge_kernel.edge_magnitude(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again, ref)
+    b = edge_kernel.MARGIN
+    assert float(ours[..., :b, :].max()) > 0.0 or shape[-1] == 1
     if min(shape[-2:]) > 2 * b:
         assert float(ours[..., b:-b, b:-b].max()) > 0.0
 
@@ -193,24 +200,21 @@ def test_edge_kernel_strip_widths_and_segment_lengths_agree(cols):
     lib, taps = edge_kernel._ready(1.4)
     y = torch.zeros(3 * 100 * 260 + 1, device=dev)[1:].view(3, 100, 260)
     y.copy_(x)
-    scratch = edge_kernel.band_scratch(3, 100, 260, dev)
+    scratch = edge_kernel.outer_scratch(3, 100, 260, dev)
     for rows in (1, 3, 4, 13, 64, 99, 100, 1000):
         for src in (x, y):
             out = torch.full_like(x, -1.0)
             _build.check(lib.camkifu_edge(
                 src.data_ptr(), out.data_ptr(), scratch.data_ptr(), 3, 100,
-                260,
-                edge_kernel.BORDER, cols, rows, taps,
-                _build.stream_handle(dev)), "edge")
+                260, cols, rows, taps, _build.stream_handle(dev)), "edge")
             torch.cuda.synchronize()
             assert torch.equal(out, ref), rows
     z = _edge_input((2, 40, 1000), seed=6).to(dev)
     out = torch.empty_like(z)
     _build.check(lib.camkifu_edge(
         z.data_ptr(), out.data_ptr(),
-        edge_kernel.band_scratch(2, 40, 1000, dev).data_ptr(), 2, 40, 1000,
-        edge_kernel.BORDER, cols, 7, taps, _build.stream_handle(dev)),
-        "edge")
+        edge_kernel.outer_scratch(2, 40, 1000, dev).data_ptr(), 2, 40, 1000,
+        cols, 7, taps, _build.stream_handle(dev)), "edge")
     assert torch.equal(out, edge_kernel.edge_magnitude_ref(z))
 
 
@@ -1146,6 +1150,83 @@ def test_pcg_normal_kernel_many_states_and_no_host_wait():
     same = (qa == qb).all(dim=-1)
     assert float(same.float().mean()) > 0.99
     assert torch.equal(a[same], b[same])
+
+
+#: Words a tile of the noise kernel (``TILE`` in ``csrc/pcg_normal.cu``).
+NOISE_TILE = 4096
+
+
+def _normals_within(state: int, inc: int, words: int) -> int:
+    """How many normals numpy's sampler completes within the first
+    ``words`` PCG64 words from ``(state, inc)``."""
+    from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel as pk
+
+    mult, mask = 0x2360ED051FC65DA44385DF649FCCF645, (1 << 128) - 1
+    steps, s = {state: 0}, state
+    for i in range(1, words + 1):
+        s = (s * mult + inc) & mask
+        steps[s] = i
+    lo, hi = 0, words                      # lo completes, hi does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        g = pk.generator(state, inc)
+        g.standard_normal(mid)
+        if g.bit_generator.state["state"]["state"] in steps:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def test_pcg_normal_kernel_at_a_tiles_edge():
+    """Frames whose last normal is the first tile's last one, or one
+    either side (the second tile emits one normal or none), and sizes at
+    which the count of tiles steps: bitwise numpy's."""
+    from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel as pk
+
+    dev = _device()
+    rng = np.random.default_rng(77)
+    rng.integers(-6, 6, (5, 7, 1))
+    st = rng.bit_generator.state["state"]
+    c = _normals_within(st["state"], st["inc"], NOISE_TILE)
+    assert 3900 < c <= NOISE_TILE
+    for n in (c - 1, c, c + 1, 3972, 3973, 7944, 7945):
+        frame = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8))
+        for noise, shot in ((3.0, 0.0), (3.0, 0.4)):
+            ours = pk.pcg_normal_noise(frame.to(dev), st["state"], st["inc"],
+                                       noise, shot)
+            want = pk.pcg_normal_noise_ref(frame, st["state"], st["inc"],
+                                           noise, shot)
+            assert torch.equal(ours.cpu(), want), (n, shot)
+
+
+def test_pcg_normal_kernel_on_two_streams_at_once():
+    """Two calls in flight together on two CUDA streams, each with its own
+    counter and published values in its own scratch: each bitwise
+    numpy's."""
+    from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel as pk
+
+    dev = _device()
+    frames, states = [], []
+    for seed in (3, 4):
+        rng = np.random.default_rng(seed)
+        frames.append(torch.from_numpy(rng.integers(
+            0, 256, (1080, 1920, 3)).astype(np.uint8)))
+        st = rng.bit_generator.state["state"]
+        states.append((st["state"], st["inc"]))
+    on_card = [f.to(dev) for f in frames]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs = []
+    for _ in range(3):
+        for f, (state, inc), stream in zip(on_card, states, streams):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                outs.append(pk.pcg_normal_noise(f, state, inc, 3.0, 0.4))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        state, inc = states[i % 2]
+        want = pk.pcg_normal_noise_ref(frames[i % 2], state, inc, 3.0, 0.4)
+        assert torch.equal(out.cpu(), want), i
 
 
 def test_multistream_on_a_two_entry_mesh_of_the_card_never_waits():

@@ -17,7 +17,7 @@ from camkifu_tpu.ops import hough as jhough
 from camkifu_tpu.ops import warp as jwarp
 from camkifu_tpu.ops import zones as jzones
 from camkifu_tpu.ops.kmeans import kmeans as jax_kmeans
-from camkifu_tpu.ops.pallas.edge_kernel import edge_magnitude
+from camkifu_tpu.ops.pallas.edge_kernel import BORDER, edge_magnitude
 from camkifu_tpu.ops.pallas.hough_kernel import hough_accumulate_pallas
 from camkifu_tpu.ops.pallas.warp_kernel import warp_to_canonical_pallas
 from camkifu_tpu.utils import synth
@@ -168,13 +168,12 @@ def test_edge_magnitude_ref_matches_pallas_kernel():
     small = _small_gray()
     ours = edge_kernel.edge_magnitude_ref(_t(small)).numpy()
     ref = np.asarray(edge_magnitude(jnp.asarray(small), interpret=True))
-    _edge_compare(ours, ref, edge_kernel.BORDER)
+    _edge_compare(ours, ref, BORDER)
     # The band the Pallas kernel zeroes follows the reference's XLA route.
     xla = np.asarray(jedges.nms_magnitude(
         *jfilters.sobel(jfilters.gaussian_blur(jnp.asarray(small)))))
     band = np.ones(ours.shape, bool)
-    band[edge_kernel.BORDER:-edge_kernel.BORDER,
-         edge_kernel.BORDER:-edge_kernel.BORDER] = False
+    band[BORDER:-BORDER, BORDER:-BORDER] = False
     assert ours[band].any()
     np.testing.assert_allclose(ours[band], xla[band], atol=1e-5)
     # Batched input: each image as on its own.
@@ -282,6 +281,155 @@ def test_hysteresis_tiling_equals_plain(hw, tile):
             ref = hysteresis_kernel.hysteresis_ref(_t(m), 0.3, 0.8, iters)
             ours = _hysteresis_tiled(_t(m), 0.3, 0.8, iters, *tile)
             assert torch.equal(ours, ref), (hw, iters)
+
+
+def _edge_walk_emulated(x, cols, rows, seed=0):
+    """The edge kernel's design (``csrc/edge.cu``) in tensor ops on one map
+    ``x`` (H, W): each strip's window of 32 * ``cols`` columns and each
+    segment of ``rows`` output rows, inputs clamped as they load, the
+    axis-1 blur taking the window's own end columns past its ends, the
+    blurred map's edge rows repeated where the walk meets them, the Sobel's
+    edge columns repeated at the map's first and last column, each strip
+    storing its own columns and writing the outer lines' magnitudes and
+    sectors; then the outer lines' NMS, wrapped, from those alone. What a
+    lane's shuffle returns past its window is random junk here, so a stored
+    value that depended on it would show."""
+    g = torch.Generator().manual_seed(seed)
+
+    def junk(*shape):
+        return torch.rand(shape, generator=g) * 1e3
+
+    def sector(gx, gy):
+        ax, ay = gx.abs(), gy.abs()
+        t1, t2 = float(np.tan(np.pi / 8)), float(np.tan(3 * np.pi / 8))
+        return torch.where(ay < t1 * ax, 0, torch.where(
+            ay > t2 * ax, 2, torch.where(gx * gy >= 0, 1, 3)))
+
+    def slot(y, n):
+        """Where the scratch holds line y of n: the first of 0, n - 1, 1,
+        n - 2 that it is."""
+        return next((r for r, line in ((0, 0), (3, n - 1), (1, 1),
+                                       (2, n - 2)) if y == line), None)
+
+    h, w = x.shape
+    taps = [float(t) for t in filters.gaussian_kernel1d(1.4)]
+    rad, margin = 4, edge_kernel.MARGIN
+    loaded = 32 * cols
+    stored = loaded - 2 * margin
+    assert edge_kernel.STRIPS[cols] == stored
+    strips = edge_kernel._strips(w, cols)
+    out = torch.full((h, w), float("nan"))
+    rmag, cmag = torch.full((4, w), float("nan")), torch.full(
+        (4, h), float("nan"))
+    rsec, csec = torch.full((2, w), -1), torch.full((2, h), -1)
+    for k in range(strips):
+        c0 = k * stored
+        xs = torch.arange(c0, c0 + loaded)
+        lo = 0 if k == 0 else c0 + margin
+        hi = w if k == strips - 1 else min(w, c0 + margin + stored)
+        own = (xs >= lo) & (xs < hi)
+        for y_lo in range(0, h, rows):
+            y_hi = min(h, y_lo + rows)
+            inp = x[torch.arange(y_lo - 6, y_hi + 6).clamp(0, h - 1)][
+                :, xs.clamp(max=w - 1)]
+            nb = y_hi - y_lo + 4               # blurred rows y_lo - 2 ..
+            a0 = taps[0] * inp[:nb]
+            for t in range(1, 9):
+                a0 = a0 + taps[t] * inp[t:t + nb]
+            e = torch.cat([a0[:, :1].expand(nb, rad), a0,
+                           a0[:, -1:].expand(nb, rad)], 1)
+            b = taps[0] * e[:, :loaded]
+            for t in range(1, 9):
+                b = b + taps[t] * e[:, t:t + loaded]
+            for j in range(nb):
+                yb = y_lo - 2 + j
+                if yb == 0 and j > 0:
+                    b[j - 1] = b[j]
+                elif yb == h:
+                    b[j] = b[j - 1]
+            nm = nb - 2                        # magnitude rows y_lo - 1 ..
+            sm = (b[:nm] + 2.0 * b[1:nm + 1]) + b[2:]
+            d = b[2:] - b[:nm]
+            smp = torch.cat([sm[:, :1], sm, junk(nm, 1)], 1)
+            dp = torch.cat([d[:, :1], d, junk(nm, 1)], 1)
+            if w - 1 - c0 < loaded:
+                smp[:, w - c0 + 1] = smp[:, w - c0]
+                dp[:, w - c0 + 1] = dp[:, w - c0]
+            gx = smp[:, 2:] - smp[:, :-2]
+            gy = (dp[:, :-2] + 2.0 * dp[:, 1:-1]) + dp[:, 2:]
+            mag = torch.sqrt(gx * gx + gy * gy)
+            sec = sector(gx, gy)
+            mp = torch.cat([junk(nm, 1), mag, junk(nm, 1)], 1)
+            for yo in range(y_lo, y_hi):
+                r = yo - y_lo + 1
+                n1 = torch.stack([mp[r, :-2], mp[r - 1, :-2], mp[r - 1, 1:-1],
+                                  mp[r - 1, 2:]])
+                n2 = torch.stack([mp[r, 2:], mp[r + 1, 2:], mp[r + 1, 1:-1],
+                                  mp[r + 1, :-2]])
+                s = sec[r][None]
+                m = mag[r]
+                keep = (m >= n1.gather(0, s)[0]) & (m >= n2.gather(0, s)[0])
+                out[yo, xs[own]] = torch.where(keep, m, 0.0)[own]
+                rs = slot(yo, h)
+                if rs is not None:
+                    rmag[rs, xs[own]] = m[own]
+                    if rs in (0, 3):
+                        rsec[rs // 3, xs[own]] = sec[r][own]
+                for xx in xs[own].tolist():
+                    cs = slot(xx, w)
+                    if cs is not None:
+                        cmag[cs, yo] = m[xx - c0]
+                        if cs in (0, 3):
+                            csec[cs // 3, yo] = sec[r][xx - c0]
+
+    def at(y, x):
+        rs = slot(y, h)
+        return rmag[rs, x] if rs is not None else cmag[slot(x, w), y]
+
+    def sec_at(y, x):
+        rs = slot(y, h)
+        if rs in (0, 3):
+            return int(rsec[rs // 3, x])
+        return int(csec[slot(x, w) // 3, y])
+
+    outer = [(y, x) for y in range(h) for x in range(w)
+             if y in (0, h - 1) or x in (0, w - 1)]
+    for y, x in outer:
+        sc = sec_at(y, x)
+        yn, ys = (y - 1) % h, (y + 1) % h
+        xw, xe = (x - 1) % w, (x + 1) % w
+        x1 = xw if sc <= 1 else (x if sc == 2 else xe)
+        x2 = xe if sc <= 1 else (x if sc == 2 else xw)
+        m = at(y, x)
+        n1 = at(y if sc == 0 else yn, x1)
+        n2 = at(y if sc == 0 else ys, x2)
+        out[y, x] = m if m >= n1 and m >= n2 else 0.0
+    return out
+
+
+@pytest.mark.parametrize("hw", [(1, 64), (64, 1), (3, 3), (1, 1), (2, 5),
+                                (15, 64), (64, 12), (16, 16), (17, 300),
+                                (23, 129), (9, 257), (40, 37), (5, 126),
+                                (4, 256), (6, 238)])
+@pytest.mark.parametrize("cols", [4, 8])
+def test_edge_boundary_scheme_equals_plain(hw, cols):
+    """The edge kernel's boundary scheme (per-stage clamping in the walks,
+    the outer lines' NMS from the walks' scratch) is ``torch.equal`` to
+    ``edge_magnitude_ref`` at 1 to H rows a segment: odd sizes, maps under
+    2 * MARGIN a side, one row or one column, widths of one to three
+    strips, and maps whose last column lies within the blur's radius of
+    the last window's end."""
+    gen = torch.Generator().manual_seed(hw[0] * 1000 + hw[1] + cols)
+    x = torch.rand(hw, generator=gen)
+    x = 0.8 * (torch.linspace(0, 1, hw[1]) > 0.3).float() + 0.2 * x
+    if hw[0] > 4:
+        x[hw[0] // 2:] = torch.rand((hw[0] - hw[0] // 2, hw[1]),
+                                    generator=gen)
+    ref = edge_kernel.edge_magnitude_ref(x)
+    assert float(ref.max()) > 0.0 or hw == (1, 1)
+    for rows in sorted({1, 4, 13, hw[0]}):
+        ours = _edge_walk_emulated(x, cols, rows)
+        assert torch.equal(ours, ref), (rows, int((ours != ref).sum()))
 
 
 def _hough_points():

@@ -2,12 +2,14 @@
 ``csrc/pcg_normal.cu``) on the CPU: the plain version is numpy's draw,
 bit for bit, with and without shot noise; the kernel's float32 expression
 written out op by op is numpy's; the committed tables are numpy's; and a
-Python model of the kernel's decomposition (runs of words, each run's
-table, a warp's composition of its runs' tables, the scan over warps in
-chunks and groups, each run's entry through its warp's prefix, the walk
-again from the true entry) gives numpy's normals bit for bit, at the
-kernel's own constants and at runs of a few words, where wedge rejections
-and tail loops cross the runs' edges and entries spill past the tables."""
+Python model of the kernel's single pass (tiles of runs of words taken in
+order, each run's masks and table, their composition over warps and the
+block, each tile's aggregate and inclusive value, the look-back over
+windows of tiles that finish out of order, each run's entry and the walk
+again from it) gives numpy's normals bit for bit, at the kernel's own
+constants and at tiles of a few runs of a few words, where wedge
+rejections and tail loops cross the runs' and tiles' edges and entries
+spill past the tables."""
 
 import math
 import re
@@ -57,7 +59,7 @@ TABLES = _header()
 def _kernel_constants() -> dict:
     src = (CSRC / "pcg_normal.cu").read_text()
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-            for k in ("RUN", "DEPTH", "SCAN_THREADS", "LANES")}
+            for k in ("RUN", "DEPTH", "THREADS", "LANES", "LOOK")}
 
 
 def _state(seed: int, hw=(37, 23)):
@@ -218,187 +220,251 @@ def _attempt(raw, q: int):
         -0.5 * x * x), x
 
 
-ESC = -1
+ESC = (-1, 0)        # an entry the tables cannot say
+
+
+class _Blocked(Exception):
+    """A look-back that would spin on a tile that has not published yet."""
 
 
 def decomposed(raw, n: int, run: int, depth: int, threads: int,
-               lanes: int = 32):
-    """The kernel's three passes over the words ``raw``: returns (n
-    normals, counts of the events that make the scan hard)."""
-    ev = dict(rewalks=0, wedge_rejects_across=0, tails_across=0,
-              far_entries=0, escapes=0)
-    runs = -(-(n + n // 32 + 4096) // run)
-    warps = -(-runs // lanes)
+               lanes: int = 32, look: int = 4, resident: int = 6,
+               order: int = 0):
+    """The kernel's single pass over the words ``raw``: tiles of ``threads``
+    runs of ``run`` words, taken in order, at most ``resident`` at once,
+    looking back over ``lanes`` * ``look`` tiles a round,
+    whose steps (tables and aggregate; look-back and inclusive; emit) a
+    seeded scheduler interleaves, so tiles finish out of order and a
+    look-back meets predecessors with an aggregate only. Returns (n
+    normals, counts of the events that make the pass hard)."""
+    ev = dict(far_run_entries=0, far_tile_entries=0, resolves=0,
+              rewalks=0, past_tile=0, agg_only=0, waits=0, slides=0,
+              fallbacks=0, wedge_rejects_across=0, tails_across=0)
+    tw = run * threads
+    words = n + n // 32 + 4096
+    tiles = -(-words // tw)
 
-    def pick(row, o):
-        return row[o] if 0 <= o < depth else (ESC, 0)
+    def attempt(t, i):
+        """The attempt at word i of tile t: its buffer, then the generator
+        past the buffer's end."""
+        used, e, z = _attempt(raw, t * tw + i)
+        ev["past_tile"] += i + used > tw
+        return used, e, z
 
     def compose(g, f):
         out = []
         for a in g:
-            b = pick(f, a[0]) if a[0] >= 0 else (ESC, 0)
-            out.append(b if b[0] < 0 else (b[0], a[1] + b[1]))
+            b = ESC if a == ESC or a[0] >= depth else f[a[0]]
+            out.append(ESC if b == ESC else (b[0], a[1] + b[1]))
         return out
 
-    # Pass 1: each run's attempts and its chains from the first entries,
-    # then each warp's inclusive composition: every run's prefix and the
-    # warp's table.
-    table, prefix, wtab = [], [], []
-    for w in range(warps):
-        fs = []
-        for r in range(w * lanes, (w + 1) * lanes):
-            if r >= runs:
-                fs.append([(ESC, 0)] * depth)
-                continue
-            steps = [_attempt(raw, r * run + q)[:2] for q in range(run)]
-            row = []
-            for d in range(depth):
-                p, c = d, 0
-                while p < run:
-                    c += steps[p][1]
-                    p += steps[p][0]
-                row.append((p - run, c))
-            table.append(row)
-            fs.append(row)
-        acc = [(d, 0) for d in range(depth)]
-        for r, f in zip(range(w * lanes, (w + 1) * lanes), fs):
-            if r < runs:
-                prefix.append(acc)
-            acc = compose(acc, f)
-        wtab.append(acc)
-
-    def rewalk(r, o):
+    def walk_run(t, r, o):
+        """The chain entering run r of tile t at o, from the words."""
+        if o >= run:
+            return o - run, 0
         ev["rewalks"] += 1
-        p, c = o, 0
-        while p < run:
-            k, e, _ = _attempt(raw, r * run + p)
-            p, c = p + k, c + e
-        return p - run, c
+        c = 0
+        while o < run:
+            used, e, _ = attempt(t, r * run + o)
+            o, c = o + used, c + e
+        return o - run, c
 
-    def run_step(r, o):
-        if o < depth:
-            return table[r][o]
-        return (o - run, 0) if o >= run else rewalk(r, o)
-
-    def warp_step(w, o):
-        e = pick(wtab[w], o)
-        if e[0] >= 0:
-            return e
-        ev["escapes"] += 1
-        total = 0
-        for r in range(w * lanes, min((w + 1) * lanes, runs)):
-            o, k = run_step(r, o)
-            total += k
-        return o, total
-
-    # Pass 2: chunks of warps, groups of chunks, then every warp's entry.
-    per = -(-warps // threads)
-
-    def lo(c):
-        return min(c * per, warps)
-
-    def chunk_step(c, o):
-        total = 0
-        for w in range(lo(c), lo(c + 1)):
-            o, k = warp_step(w, o)
-            total += k
-        return o, total
-
-    ctab = []
-    for c in range(threads):
-        row = []
-        for d in range(depth):
-            o, total = d, 0
-            for w in range(lo(c), lo(c + 1)):
-                o, k = pick(wtab[w], o) if o >= 0 else (ESC, 0)
-                total += k
-            row.append((o if o < depth else ESC, total))
-        ctab.append(row)
-
-    def chunk_at(c, o):
-        e = pick(ctab[c], o)
-        return e if e[0] >= 0 else chunk_step(c, o)
-
-    group = threads // lanes
-    gt = []
-    for g in range(lanes):
-        row = []
-        for d in range(depth):
-            o, total = d, 0
-            for c in range(g * group, (g + 1) * group):
-                o, k = pick(ctab[c], o) if o >= 0 else (ESC, 0)
-                total += k
-            row.append((o, total))
-        gt.append(row)
-    o, base, gent = 0, 0, []
-    for g in range(lanes):
-        gent.append((o, base))
-        e = pick(gt[g], o)
-        if e[0] < 0:
-            e = (o, 0)
-            for c in range(g * group, (g + 1) * group):
-                f = chunk_at(c, e[0])
-                e = (f[0], e[1] + f[1])
-        o, base = e[0], base + e[1]
-    cent = []
-    for g in range(lanes):
-        o, base = gent[g]
-        for c in range(g * group, (g + 1) * group):
-            cent.append((o, base))
-            o, k = chunk_at(c, o)
-            base += k
-    wentry = []
-    for c in range(threads):
-        o, base = cent[c]
-        for w in range(lo(c), lo(c + 1)):
-            wentry.append((o, base))
-            o, k = warp_step(w, o)
-            base += k
-    # Pass 3: each run's entry through its warp's prefix; each run from its
-    # true entry; the last walks on.
+    status = [0] * tiles                    # 1 aggregate, 2 inclusive
+    agg, inc = [None] * tiles, [None] * tiles
     out = np.full(n, np.nan)
-    for r in range(runs):
-        wo, wb = wentry[r // lanes]
-        o, k = pick(prefix[r], wo)
-        if o < 0:
-            ev["escapes"] += 1
-            o, k = wo, 0
-            for q in range(r - r % lanes, r):
-                o, c = run_step(q, o)
-                k += c
-        k += wb
-        last = r == runs - 1
-        ev["far_entries"] += depth <= o < run
-        if k >= n or (o >= run and not last):
-            continue
-        p = o
-        while (p < run or last) and k < n:
-            used, e, z = _attempt(raw, r * run + p)
-            if p + used > run and not last:
-                ev["wedge_rejects_across"] += used == 2 and not e
-                ev["tails_across"] += used >= 3
-            p += used
-            if e:
-                out[k] = z
-                k += 1
+
+    full = (1 << run) - 1
+
+    def chain(t, r, m, o):
+        """The chain entering run r at o from the run's masks (fast,
+        wedge, gives a normal): fast words counted a stretch at a time, a
+        tail's length from the words."""
+        fast, wedge, emits = m
+        c = 0
+        while o < run:
+            ahead = full & ~((1 << o) - 1)
+            slow = ~fast & ahead & full
+            s = (slow & -slow).bit_length() - 1 if slow else run
+            c += bin(fast & ahead & ((1 << s) - 1)).count("1")
+            if s == run:
+                return 0, c
+            c += emits >> s & 1
+            o = s + 2 if wedge >> s & 1 else s + attempt(t, r * run + s)[0]
+        return o - run, c
+
+    def tables(t):
+        """Each run's masks (a thread each, every attempt of its run
+        evaluated once) and table, the warps' shuffle scans, the block's
+        composition; publishes the aggregate."""
+        tab, masks = [], []
+        for r in range(threads):
+            m = [0, 0, 0]
+            for q in range(run):
+                used, e, _ = attempt(t, r * run + q)
+                m[0] |= (used == 1) << q
+                m[1] |= (used == 2) << q
+                m[2] |= e << q
+            masks.append(m)
+            tab.append([chain(t, r, m, d) for d in range(depth)])
+        ident = [(d, 0) for d in range(depth)]
+        pre, wagg = [], []
+        for w0 in range(0, threads, lanes):
+            f = [list(x) for x in tab[w0:w0 + lanes]]
+            f = [[tuple(e) for e in x] for x in f]
+            s = 1
+            while s < len(f):                # Hillis-Steele, as shuffles
+                f = [compose(f[i - s], f[i]) if i >= s else f[i]
+                     for i in range(len(f))]
+                s *= 2
+            pre += [ident] + f[:-1]
+            wagg.append(f[-1])
+        prefix, acc = [], ident
+        for w, w0 in enumerate(range(0, threads, lanes)):
+            prefix += [compose(acc, p) for p in pre[w0:w0 + lanes]]
+            acc = compose(acc, wagg[w])
+        # Published as words of 8-bit exits: 255 where it cannot say.
+        agg[t] = [ESC if e[0] > 254 else e for e in acc]
+        status[t] = 1
+        return tab, prefix, masks
+
+    def look_back(t):
+        """The tile's entry offset and first normal: windows of ``lanes``
+        * ``look`` predecessors (tile -1 enters tile 0 at (0, 0)); a window
+        whose
+        tiles up to the nearest inclusive value all have an aggregate is
+        composed and carries that value forward, a window of aggregates
+        only is composed and the look-back goes on before it; where the
+        composition cannot say, it starts again later, once the tile that
+        could not say has published its inclusive value."""
+        ident = [(d, 0) for d in range(depth)]
+        r, top, window = ident, t - 1, lanes * look
+        while True:
+            seen = [(p, 2 if p < 0 else status[p])
+                    for p in range(top, top - window, -1)]
+            j = next((i for i, (_, st) in enumerate(seen) if st == 2),
+                     window)
+            if any(st == 0 for _, st in seen[:j]):
+                ev["waits"] += 1
+                raise _Blocked
+            f = ident
+            for p, st in reversed(seen[:j]):
+                f = compose(f, agg[p])
+                ev["agg_only"] += st == 1
+            r = compose(f, r)
+            if j < window:
+                p0 = seen[j][0]
+                e = (0, 0) if p0 < 0 else inc[p0]
+                if p0 == t - 1:
+                    return e                   # exact, even past DEPTH
+                c = r[e[0]] if e[0] < depth else ESC
+                if c != ESC:
+                    return c[0], e[1] + c[1]
+                ev["fallbacks"] += 1           # again, once more is known
+                raise _Blocked
+            ev["slides"] += 1
+            top -= window
+
+    def entries(t, tab, prefix, o, base):
+        """Each run's entry and first normal through its prefix, or, where
+        a prefix cannot say, the tile walked run by run from its entry;
+        publishes the inclusive value."""
+        ev["far_tile_entries"] += o >= depth
+        ent = [p[o] if o < depth else ESC for p in prefix]
+        tot = agg[t][o] if o < depth else ESC
+        if ESC in ent or tot == ESC:
+            ev["resolves"] += 1
+            ent, oo, k = [], o, 0
+            for r in range(threads):
+                ent.append((oo, k))
+                ev["far_run_entries"] += depth <= oo < run and r > 0
+                x, c = tab[r][oo] if oo < depth else walk_run(t, r, oo)
+                oo, k = x, k + c
+            tot = (oo, k)
+        inc[t], status[t] = (tot[0], base + tot[1]), 2
+        return ent
+
+    def emit(t, ent, base, masks):
+        """Each run walked again from its entry, from its masks inside the
+        run; the tile's normals staged and written as one span, a normal
+        from past the tile's end (the last tile walking on) directly."""
+        span = inc[t][1] - base
+        staged = {}
+        for r in range(threads):
+            p, k = ent[r][0], base + ent[r][1]
+            last = t == tiles - 1 and r == threads - 1
+            fast, wedge, emits = masks[r]
+            while (p < run or last) and k < n:
+                used, e, z = attempt(t, r * run + p)
+                if p < run and (fast | wedge) >> p & 1:
+                    used, e = 1 if fast >> p & 1 else 2, emits >> p & 1
+                if p < run < p + used:
+                    ev["wedge_rejects_across"] += used == 2 and not e
+                    ev["tails_across"] += used >= 3
+                if e:
+                    if r * run + p < tw:
+                        staged[k] = z
+                    else:
+                        out[k] = z
+                    k += 1
+                p += used
+        lo, hi = base, min(base + span, n)
+        assert sorted(staged) == list(range(lo, hi)), t
+        out[lo:hi] = [staged[k] for k in range(lo, hi)]
+
+    rng = np.random.default_rng(order)
+    state = {}                               # tile -> its steps' results
+    started, done = 0, 0
+    while done < tiles:
+        while started < tiles and len(state) < resident:
+            state[started] = ["tables"]
+            started += 1
+        ready = []
+        for t, st in state.items():
+            if st[0] != "look":
+                ready.append(t)
+                continue
+            try:
+                st.append(look_back(t) if t else (0, 0))
+                st[0] = "entries"
+                ready.append(t)
+            except _Blocked:
+                pass
+        assert ready, "deadlock"
+        t = ready[rng.integers(len(ready))]
+        st = state[t]
+        if st[0] == "tables":
+            st[:] = ["look", *tables(t)]
+        elif st[0] == "entries":
+            _, tab, prefix, masks, (o, base) = st
+            st[:] = ["emit", entries(t, tab, prefix, o, base), base, masks]
+        else:
+            emit(t, *st[1:])
+            del state[t]
+            done += 1
     return out, ev
 
 
-@pytest.mark.parametrize("run, depth, threads, lanes, seed", [
-    ("kernel", "kernel", "kernel", "kernel", 1),
-    (3, 2, 64, 4, 2),
-    (4, 1, 32, 8, 3),
-    (5, 3, 96, 32, 4),
+@pytest.mark.parametrize("run, depth, threads, lanes, look, resident, seed", [
+    ("kernel", "kernel", "kernel", "kernel", "kernel", 6, 1),
+    (3, 2, 64, 4, 1, 5, 2),
+    (4, 1, 32, 8, 2, 3, 3),
+    (5, 3, 96, 32, 4, 8, 4),
+    (3, 1, 4, 2, 2, 9, 5),
 ])
-def test_decomposition_model_is_numpys(run, depth, threads, lanes, seed):
-    """10⁵ normals through the model of the kernel's passes, bitwise
-    numpy's standard_normal from the same state; with runs of a few words
-    the wedge rejections and tail loops cross the runs' edges, and entries
-    past the tables are walked again."""
+def test_decomposition_model_is_numpys(run, depth, threads, lanes, look,
+                                       resident, seed):
+    """10⁵ normals through the model of the kernel's single pass, bitwise
+    numpy's standard_normal from the same state: at the kernel's
+    constants, and with runs of a few words, where wedge rejections and
+    tail loops cross the runs' and tiles' edges, entries spill past the
+    tables into runs and tiles and are walked again from the words, and
+    the look-back passes predecessors with an aggregate only, waits on
+    others and slides its window."""
     k = _kernel_constants()
     if run == "kernel":
-        run, depth, threads, lanes = (k["RUN"], k["DEPTH"],
-                                      k["SCAN_THREADS"], k["LANES"])
+        run, depth, threads, lanes, look = (k["RUN"], k["DEPTH"],
+                                            k["THREADS"], k["LANES"],
+                                            k["LOOK"])
     n = 100_000
     _, state, inc = _state(seed)
     bg = np.random.PCG64()
@@ -406,14 +472,19 @@ def test_decomposition_model_is_numpys(run, depth, threads, lanes, seed):
                 "state": {"state": state, "inc": inc},
                 "has_uint32": 0, "uinteger": 0}
     raw = bg.random_raw(n + n // 16 + 8192)
-    got, ev = decomposed(raw, n, run, depth, threads, lanes)
+    got, ev = decomposed(raw, n, run, depth, threads, lanes, look, resident,
+                         seed)
     want = pk.generator(state, inc).standard_normal(n)
     assert np.array_equal(got.view(np.uint64), want.view(np.uint64)), \
         int(np.flatnonzero(got != want)[0])
+    assert ev["agg_only"] > 0 and ev["past_tile"] > 0, ev
     if run <= 5:
         assert ev["wedge_rejects_across"] > 10 and ev["tails_across"] > 5, ev
-        assert ev["rewalks"] > 0 and ev["far_entries"] > 0, ev
-        assert ev["escapes"] > 0, ev
+        assert ev["rewalks"] > 0 and ev["far_run_entries"] > 0, ev
+        assert ev["resolves"] > 0 and ev["waits"] > 0, ev
+    if threads <= 4:
+        assert ev["far_tile_entries"] > 0 and ev["slides"] > 0, ev
+        assert ev["fallbacks"] > 0, ev
 
 
 # -- the renderer ------------------------------------------------------------

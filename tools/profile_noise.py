@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the sensor noise kernel's time goes, on the card: the device time
-of each of its three launches (``run_tables``, ``scan_warps``,
-``emit_runs`` in ``camkifu_tpu_torch/csrc/pcg_normal.cu``) from
-``torch.profiler``, beside the whole call's CUDA-event time and its bound,
-at 720p and 1080p, read noise and shot noise.
+of its launch (``pcg_normal_kernel`` in
+``camkifu_tpu_torch/csrc/pcg_normal.cu``) and of the memset that zeroes its
+tile counter and flags, from ``torch.profiler``, beside the whole call's
+CUDA-event time and its bound, at 720p and 1080p, read noise and shot
+noise.
 
     python3 tools/profile_noise.py [--reps 20]
 
@@ -22,7 +23,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def main(argv=None) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel as pk
@@ -48,15 +48,7 @@ def main(argv=None) -> int:
                 return pk.pcg_normal_noise(frame, state, inc, noise, shot)
 
             ms = cs._cuda_ms(call, args.reps)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(args.reps):
-                    call()
-                torch.cuda.synchronize()
-            parts = {}
-            for e in prof.key_averages():
-                for k in ("run_tables", "scan_warps", "emit_runs"):
-                    if k in e.key:
-                        parts[k] = e.device_time_total / e.count / 1e3
+            parts = cs.launch_split(call, args.reps)
             print(f"{hw[0]}p {name}: {ms:.4f} ms a call (CUDA events), "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
                   + f" (profiler); bound {bound:.4f} ms by {by}, share "
