@@ -49,6 +49,10 @@ _SIGNATURES = {
     "camkifu_edge_taps": [],
     "camkifu_edge_strip": [_I],
     "camkifu_hysteresis": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _I, _P],
+    "camkifu_hysteresis_adaptive": [_P, _P, _I, _I, _I, _F, _F, _F, _I,
+                                    _P],
+    "camkifu_hysteresis_smem": [_I, _I, _I],
+    "camkifu_hysteresis_lerp": [_P, _P, _P, _P, _I, _I, _P],
     "camkifu_hough": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _P],
     "camkifu_pcg_normal": [_P, _P, _I, _U64, _U64, _U64, _U64, _I, _D, _F,

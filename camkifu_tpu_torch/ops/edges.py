@@ -2,7 +2,8 @@
 (port of camkifu_tpu/ops/edges.py).
 
 ``edge_map`` and ``edge_map_batch`` take the fused edge kernel and the
-hysteresis kernel on a CUDA tensor and the plain paths on the CPU, as the
+hysteresis kernel (its thresholds selected in the same launch) on a CUDA
+tensor and the plain paths on the CPU, as the
 reference takes its Pallas kernel on its accelerator and the XLA path
 elsewhere.
 """
@@ -70,24 +71,22 @@ def edge_map_batch(grays: torch.Tensor, sigma: float = 1.4,
                    hysteresis_iters: int = 4) -> torch.Tensor:
     """``edge_map`` over a batch: (N, H, W) gray in [0, 1] → (N, H, W).
 
-    On a CUDA tensor blur+Sobel+NMS run as the fused kernel, one call for
-    all N, and the hysteresis as one more launch; on the CPU both run as
-    plain tensor ops. Both give the route the reference takes off the TPU:
-    edge padding, NMS neighbours wrapped, no border band. Thresholds are
-    fractions of each frame's own 99.5th percentile of a 2×-strided view,
-    read on the device; the kernel takes at most
-    ``hysteresis_kernel.MAX_ITERS`` steps.
+    On a CUDA tensor blur+Sobel+NMS run as the fused edge kernel, one call
+    for all N, and the thresholds and the hysteresis as one more launch
+    (``hysteresis_adaptive``); on the CPU all of it runs as plain tensor
+    ops. Both give the route the reference takes off the TPU: edge padding,
+    NMS neighbours wrapped, no border band. Thresholds are fractions of
+    each frame's own 99.5th percentile of a 2×-strided view, selected on
+    the device; the kernel takes at most ``hysteresis_kernel.MAX_ITERS``
+    steps.
     """
     if grays.is_cuda:
         from camkifu_tpu_torch.ops.cuda.edge_kernel import edge_magnitude
 
         mags = edge_magnitude(grays.contiguous(), sigma=sigma)
-        hyst = hysteresis_kernel.hysteresis
-    else:
-        gx, gy = sobel(gaussian_blur(grays, sigma))
-        mags = nms_magnitude(gx, gy)
-        hyst = hysteresis_kernel.hysteresis_ref
-    n = mags.shape[0]
-    ref = percentile(mags[:, ::2, ::2].reshape(n, -1), 99.5, dim=1)
-    ref = ref[:, None, None]
-    return hyst(mags, low_frac * ref, high_frac * ref, hysteresis_iters)
+        return hysteresis_kernel.hysteresis_adaptive(
+            mags, low_frac, high_frac, hysteresis_iters)
+    gx, gy = sobel(gaussian_blur(grays, sigma))
+    mags = nms_magnitude(gx, gy)
+    return hysteresis_kernel.hysteresis_adaptive_ref(
+        mags, low_frac, high_frac, hysteresis_iters)

@@ -133,6 +133,8 @@ HYSTERESIS_OPS_PX = 3
 #: at.
 HYSTERESIS_ITERS = 4
 LOW_FRAC, HIGH_FRAC = 0.15, 0.4
+#: (start, end, weight) triples the select's lerp is swept over.
+LERP_TRIPLES = 1_000_000
 #: Calls per kernel time: the kernel, its plain version, the library call.
 KERNEL_REPS = 20
 PLAIN_REPS = 3
@@ -752,9 +754,49 @@ def _check_hysteresis_wrap(dev) -> None:
              "hysteresis did not reach around the image's edges")
 
 
+def _check_hysteresis_adaptive(mags, label: str) -> float:
+    """The hysteresis kernel with its thresholds selected in the launch
+    (``hysteresis_adaptive``) against its plain version (``torch.quantile``
+    + ``hysteresis_ref``) on maps ``mags`` (N, H, W): ``torch.equal``, one
+    launch. Returns the largest difference."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import hysteresis_kernel as hk
+
+    before = hk.launches
+    a = hk.hysteresis_adaptive(mags, LOW_FRAC, HIGH_FRAC, HYSTERESIS_ITERS)
+    launched = hk.launches - before
+    b = hk.hysteresis_adaptive_ref(mags, LOW_FRAC, HIGH_FRAC,
+                                   HYSTERESIS_ITERS)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    err = float((a - b).abs().max())
+    print(f"kernel hysteresis adaptive{label}: {tuple(mags.shape)}, "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'}, "
+          f"{int((a > 0).sum())} pixels kept, {launched} launch", flush=True)
+    _require(same, f"hysteresis_adaptive{label} is not equal to its plain "
+             f"version")
+    _require(launched == 1, f"hysteresis_adaptive{label} launched "
+             f"{launched} times")
+    return err
+
+
+def quantile_route(mags):
+    """The threshold tail in plain launches, as ``edge_map_batch`` ran it
+    before the kernel selected its thresholds: a strided copy,
+    ``torch.quantile``, two multiplies, then the kernel with the thresholds
+    given (``hysteresis``); the yardstick of ``hysteresis_adaptive``."""
+    from camkifu_tpu_torch.ops.cuda import hysteresis_kernel
+
+    low, high = _thresholds(mags)
+    return hysteresis_kernel.hysteresis(mags, low, high, HYSTERESIS_ITERS)
+
+
 def _edge_cases(x, path: str, label: str, main: bool = False) -> list[dict]:
     """The edge and the hysteresis kernel at one path's maps ``x``: the
-    hysteresis on the edge kernel's magnitudes and their own thresholds."""
+    hysteresis on the edge kernel's magnitudes, its thresholds selected in
+    the launch, beside the quantile route (``quantile_route``) and the
+    kernel with the route's thresholds given, each checked bitwise."""
     from camkifu_tpu_torch.ops.cuda import edge_kernel, hysteresis_kernel
 
     side = f"{x.shape[-1]}²"
@@ -765,16 +807,44 @@ def _edge_cases(x, path: str, label: str, main: bool = False) -> list[dict]:
         _check_edge(x, label), bound_edge(x), main=main, rows=x)]
     mags = edge_kernel.edge_magnitude(x)
     low, high = _thresholds(mags)
+    err = max(_check_hysteresis_adaptive(mags, label),
+              _check_hysteresis(mags, low, high, label))
     cases.append(_case(
         "hysteresis", f"N = {x.shape[0]}, {side}, {HYSTERESIS_ITERS} steps",
         path,
-        lambda: hysteresis_kernel.hysteresis(mags, low, high,
-                                             HYSTERESIS_ITERS),
-        lambda: hysteresis_kernel.hysteresis_ref(mags, low, high,
-                                                 HYSTERESIS_ITERS),
-        _check_hysteresis(mags, low, high, label), bound_hysteresis(mags),
-        main=main))
+        lambda: hysteresis_kernel.hysteresis_adaptive(
+            mags, LOW_FRAC, HIGH_FRAC, HYSTERESIS_ITERS),
+        lambda: hysteresis_kernel.hysteresis_adaptive_ref(
+            mags, LOW_FRAC, HIGH_FRAC, HYSTERESIS_ITERS),
+        err, bound_hysteresis(mags), main=main,
+        others={"route_ms": lambda: quantile_route(mags),
+                "given_ms": lambda: hysteresis_kernel.hysteresis(
+                    mags, low, high, HYSTERESIS_ITERS)}))
     return cases
+
+
+def _check_lerp(dev) -> None:
+    """The select's interpolation against ``torch.lerp`` on the card over
+    ``LERP_TRIPLES`` seeded (start, end, weight) triples, weights in [0, 1)
+    and at 0.5: the kernel's own form must agree everywhere; the fused and
+    the separately rounded forms are printed."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import hysteresis_kernel
+
+    gen = torch.Generator().manual_seed(16)
+    s, e = (torch.randn(LERP_TRIPLES, generator=gen).to(dev)
+            for _ in range(2))
+    w = torch.rand(LERP_TRIPLES, generator=gen)
+    w[::97] = 0.5
+    w = w.to(dev)
+    ref = torch.lerp(s, e, w)
+    differ = [int((hysteresis_kernel.lerp_probe(s, e, w, form) != ref).sum())
+              for form in (0, 1, 2)]
+    print(f"kernel hysteresis lerp: {LERP_TRIPLES} triples, differ from "
+          f"torch.lerp: the kernel's form {differ[0]}, fused {differ[1]}, "
+          f"separate roundings {differ[2]}", flush=True)
+    _require(differ[0] == 0, "the select's lerp differs from torch.lerp")
 
 
 def _check_hough(pts, wts, rho_max: float, label: str) -> float:
@@ -800,7 +870,9 @@ def _case(name: str, shape: str, path: str, kern, plain, err: float,
     """One kernel at one path shape, for ``phase_kernel_times``: the kernel
     and its plain version as calls, ``library`` a function that makes the
     library yardstick's call (or None), ``main`` for the still path's
-    shape, which the top-level numbers of the kernels line report."""
+    shape, which the top-level numbers of the kernels line report;
+    ``others`` ({key: call}) more calls timed as the kernel is, each
+    reported under its key."""
     return {"name": name, "shape": shape, "path": path, "kern": kern,
             "plain": plain, "library": library, "err": err, "bound": bound,
             "main": main, **extra}
@@ -850,6 +922,7 @@ def phase_kernels(frames, corners) -> list[dict]:
     x = torch.stack([small, chroma]).contiguous()
     cases += _edge_cases(x, "still", "", main=True)
     _check_hysteresis_wrap(frames.device)
+    _check_lerp(frames.device)
 
     # Hough: K = 4096 edge points of the luma map, 128 × 256 bins.
     pts, wts = topk_edge_points(edge_map(small))
@@ -1178,47 +1251,69 @@ def _rows_sweep(x) -> str:
     return text
 
 
-def launch_split(call, reps: int = KERNEL_REPS) -> dict:
+def launch_split(call, reps: int = KERNEL_REPS, counts: dict | None = None
+                 ) -> dict:
     """Device milliseconds a launch of each kernel (or memset) that
     ``call`` launches once, by name, from ``torch.profiler`` (the mean over
-    the launches it recorded of ``reps`` calls). A profiler session may
-    leave launches slower for the rest of the process: call it after every
-    host-paced timing."""
+    the launches it recorded of ``reps`` calls); with ``counts``, each
+    name's launches a call go there. A profiler session may leave launches
+    slower for the rest of the process: call it after every host-paced
+    timing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
+    # A session now and then records no device activity at all; it is
+    # taken again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_time_total > 0 for e in events):
+            break
     parts = {}
-    for e in prof.key_averages():
+    for e in events:
         if e.device_time_total > 0 and e.count:
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].split("<")[0]
-            parts[name.strip().split("::")[-1]] = \
-                e.device_time_total / e.count / 1e3
+            name = name.strip().split("::")[-1]
+            parts[name] = e.device_time_total / e.count / 1e3
+            if counts is not None:
+                counts[name] = counts.get(name, 0) + e.count / reps
     return parts
 
 
 def phase_launch_split(dev, card: str) -> dict:
-    """The edge and noise kernels' device time by launch (``launch_split``)
-    at their paths' sizes, on seeded maps and frames, last of all phases:
-    {kernel: {shape: {launch: ms}}}."""
+    """The edge, hysteresis and noise kernels' device time by launch
+    (``launch_split``) at their paths' sizes, on seeded maps and frames,
+    last of all phases: {kernel: {shape: {launch: ms}}}; for the
+    hysteresis also the quantile route (``quantile_route``) with its
+    launches a call."""
     import numpy as np
     import torch
 
-    from camkifu_tpu_torch.ops.cuda import edge_kernel
+    from camkifu_tpu_torch.ops.cuda import edge_kernel, hysteresis_kernel
     from camkifu_tpu_torch.ops.cuda import pcg_normal_kernel as pk
 
-    out = {"edge": {}, "pcg_normal": {}}
+    out = {"edge": {}, "hysteresis": {}, "pcg_normal": {}}
     gen = torch.Generator().manual_seed(0)
     for n, side in ((2, 256), (8, 256), (16, 256), (128, 256), (2, 512)):
         x = torch.rand((n, side, side), generator=gen).to(dev)
-        out["edge"][f"N = {n}, {side}²"] = launch_split(
+        shape = f"N = {n}, {side}²"
+        out["edge"][shape] = launch_split(
             lambda x=x: edge_kernel.edge_magnitude(x))
+        mags = edge_kernel.edge_magnitude(x)
+        out["hysteresis"][shape] = launch_split(
+            lambda m=mags: hysteresis_kernel.hysteresis_adaptive(
+                m, LOW_FRAC, HIGH_FRAC, HYSTERESIS_ITERS))
+        counts = {}
+        route = launch_split(lambda m=mags: quantile_route(m), counts=counts)
+        out["hysteresis"][f"{shape}, quantile route"] = route
+        out["hysteresis"][f"{shape}, quantile route, launches a call"] = \
+            counts
     for hw in NOISE_HWS:
         frame = torch.from_numpy(np.random.default_rng(1).integers(
             0, 256, (*hw, 3)).astype(np.uint8)).to(dev)
@@ -1229,9 +1324,11 @@ def phase_launch_split(dev, card: str) -> dict:
                     pk.pcg_normal_noise(f, s, i, nz, sh))
     for kernel, shapes in out.items():
         for shape, parts in shapes.items():
+            unit = "" if "launches a call" in shape else " ms"
             print(f"launches {kernel} {shape}: " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in parts.items())
-                + f" ({card})", flush=True)
+                f"{k} {v:.4f}{unit}" for k, v in parts.items())
+                + f" (total {sum(parts.values()):.4f}{unit}; {card})",
+                flush=True)
     return out
 
 
@@ -1263,6 +1360,9 @@ def phase_kernel_times(cases: list[dict], card: str) -> None:
         if c["main"]:
             c["paced_ms"] = _cuda_ms(c["kern"], KERNEL_REPS, spin=False)
             extra = f"; {c['paced_ms']:.4f} ms as the host issues it"
+        for key, call in c.get("others", {}).items():
+            c[key] = _cuda_ms(call, KERNEL_REPS)
+            extra += f"; {key} {c[key]:.4f}"
         if "sector_floor_ms" in c:
             extra += f"; whole-sector floor {c['sector_floor_ms']:.4f} ms"
         if "splits" in c:
@@ -4531,8 +4631,9 @@ SOURCES = {
     "hough": ("camkifu_tpu_torch/csrc/hough.cu",
               "camkifu_tpu/ops/pallas/hough_kernel.py:67"),
     "hysteresis": ("camkifu_tpu_torch/csrc/hysteresis.cu",
-                   "camkifu_tpu/ops/edges.py:50 hysteresis (XLA ops, no "
-                   "Pallas kernel)"),
+                   "camkifu_tpu/ops/edges.py:50 hysteresis and the strided "
+                   "percentile before it, :104-105 and :133-136 (XLA ops, "
+                   "no Pallas kernel)"),
     "pcg_normal": ("camkifu_tpu_torch/csrc/pcg_normal.cu",
                    "camkifu_tpu/utils/synth.py:322-332 (numpy's "
                    "Generator.normal / standard_normal on the host, no "
@@ -4541,7 +4642,7 @@ SOURCES = {
 
 
 NUMBERS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "share",
-           "err", "paced_ms")
+           "err", "paced_ms", "route_ms", "given_ms")
 
 
 def _numbers_only(case: dict) -> dict:
@@ -4807,9 +4908,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="The port's smoke run on a "
                                  "CUDA card.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time another checkout's edge and noise "
-                    "kernels beside this one's (tools/ab_kernels.py: DIR, "
-                    "this, this, DIR), after the phases")
+                    help="also time another checkout's edge, hysteresis "
+                    "and noise kernels beside this one's "
+                    "(tools/ab_kernels.py: DIR, this, this, DIR), after the "
+                    "phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "

@@ -292,6 +292,133 @@ def test_hysteresis_kernel_wraps_and_handles_zero_and_nan():
                                      hysteresis_kernel.MAX_ITERS + 1)
 
 
+ADAPTIVE_SHAPES = [
+    (1, 256, 256), (2, 256, 256), (8, 256, 256), (16, 256, 256),
+    (128, 256, 256), (2, 512, 512), (70, 45), (3, 17, 300), (2, 300, 17),
+    (2, 40, 500), (2, 5, 3)]
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4, 8])
+@pytest.mark.parametrize("shape", ADAPTIVE_SHAPES)
+def test_hysteresis_adaptive_equals_plain(shape, iters):
+    """``hysteresis_adaptive`` is ``torch.equal`` to its plain twin
+    (``torch.quantile`` of the strided view, then ``hysteresis_ref``) at
+    the given-threshold test's shapes, N = 8 and 512², at the paths'
+    fractions and at fractions that keep more; one launch a call."""
+    dev = _device()
+    mag = _hysteresis_input(shape, seed=shape[-1] + iters).to(dev)
+    for low, high in ((0.15, 0.4), (0.3, 0.9)):
+        before = hysteresis_kernel.launches
+        ours = hysteresis_kernel.hysteresis_adaptive(mag, low, high, iters)
+        assert hysteresis_kernel.launches == before + 1
+        ref = hysteresis_kernel.hysteresis_adaptive_ref(mag, low, high,
+                                                        iters)
+        torch.cuda.synchronize()
+        assert torch.equal(ours, ref), (low, high)
+        if ours.numel() > 1000:
+            assert 0 < int((ours > 0).sum()) < ours.numel()
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4, 8])
+def test_hysteresis_adaptive_zero_constant_and_nan_maps(iters):
+    """All-zero and constant maps (every order statistic a tie), negative
+    values and signed zeros, a NaN in the strided view (that map all 0.0)
+    and one off it (no effect): ``torch.equal`` to the plain twin."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(7)
+    mag = torch.rand((6, 64, 200), generator=gen)
+    mag[0] = 0.0
+    mag[1] = 0.5
+    mag[2] = torch.randn((64, 200), generator=gen)
+    mag[2, ::5, ::3] = -0.0
+    mag[3, 10, 20] = float("nan")
+    mag[4, 11, 21] = float("nan")
+    mag[5] = (torch.rand((64, 200), generator=gen) * 4).floor() / 4
+    mag = mag.to(dev)
+    ours = hysteresis_kernel.hysteresis_adaptive(mag, 0.15, 0.4, iters)
+    ref = hysteresis_kernel.hysteresis_adaptive_ref(mag, 0.15, 0.4, iters)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ours, ref, rtol=0, atol=0, equal_nan=True)
+    assert float(ours[3].abs().max()) == 0.0
+    assert bool((ours[4] > 0).any())
+
+
+def test_hysteresis_adaptive_no_host_wait_and_refusals():
+    """No host wait (sync debug mode "error"); a map too large for the
+    cluster's shared memory, more than MAX_ITERS steps and a q outside
+    [0, 100] are refused before any launch."""
+    dev = _device()
+    mag = _hysteresis_input((16, 256, 256), seed=3).to(dev)
+    hysteresis_kernel.hysteresis_adaptive(mag, 0.15, 0.4, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = hysteresis_kernel.hysteresis_adaptive(mag, 0.15, 0.4, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, hysteresis_kernel.hysteresis_adaptive_ref(
+        mag, 0.15, 0.4, 4))
+    assert hysteresis_kernel.smem_bytes(576, 576, True) > 0
+    assert hysteresis_kernel.smem_bytes(577, 577, True) < 0
+    assert hysteresis_kernel.smem_bytes(628, 628, False) > 0
+    assert hysteresis_kernel.smem_bytes(629, 629, False) < 0
+    before = hysteresis_kernel.launches
+    with pytest.raises(ValueError, match="too large"):
+        hysteresis_kernel.hysteresis_adaptive(
+            torch.zeros((1, 1200, 1200), device=dev), 0.15, 0.4, 4)
+    with pytest.raises(ValueError):
+        hysteresis_kernel.hysteresis_adaptive(
+            mag, 0.15, 0.4, hysteresis_kernel.MAX_ITERS + 1)
+    with pytest.raises(ValueError):
+        hysteresis_kernel.hysteresis_adaptive(mag, 0.15, 0.4, 4, q=101.0)
+    assert hysteresis_kernel.launches == before
+
+
+def test_hysteresis_lerp_is_torch_lerp():
+    """The select's interpolation (the kernel's own form: ATen's two
+    branches with each product fused into its sum) is ``torch.lerp`` on
+    the card over 10⁶ seeded triples, weights in [0, 1) and at 0.5."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(16)
+    s, e = (torch.randn(1_000_000, generator=gen).to(dev) for _ in range(2))
+    w = torch.rand(1_000_000, generator=gen)
+    w[::97] = 0.5
+    w = w.to(dev)
+    ours = hysteresis_kernel.lerp_probe(s, e, w)
+    assert torch.equal(ours, torch.lerp(s, e, w))
+
+
+def test_edge_map_batch_is_three_launches():
+    """``edge_map_batch`` on the card is three kernel launches (the edge
+    walk, the outer lines' NMS, the hysteresis with its thresholds) and
+    nothing else on the device, with no host wait, and equals the edge
+    kernel's magnitudes through ``hysteresis_adaptive_ref``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from camkifu_tpu_torch.ops import edges
+
+    dev = _device()
+    x = _edge_input((4, 256, 256), seed=12).to(dev)
+    edges.edge_map_batch(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ours = edges.edge_map_batch(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        edges.edge_map_batch(x)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(on_card) == 3, on_card
+    assert sum("hysteresis" in name for name in on_card) == 1, on_card
+    mags = edge_kernel.edge_magnitude(x)
+    assert torch.equal(ours, hysteresis_kernel.hysteresis_adaptive_ref(
+        mags, 0.15, 0.4, 4))
+
+
 def test_edge_map_batch_takes_both_kernels():
     """``edge_map_batch`` on the card is one edge launch and one hysteresis
     launch, and equals the plain hysteresis of the kernel's magnitudes."""

@@ -241,45 +241,83 @@ def test_hysteresis_ref_equals_jax(iters, per_frame):
     assert kept[-3, 5] == (iters >= 3)
 
 
-def _hysteresis_tiled(mag, low, high, iters, th, tw):
-    """The kernel's tiling in tensor ops: each (th, tw) output tile is cut
-    with a halo of ``iters`` pixels through indices modulo H and W, dilated
-    ``iters`` times knowing nothing of what lies outside it, and its
-    interior kept."""
+def _hysteresis_banded(mag, low, high, iters, blocks, bits):
+    """The kernel's design (``csrc/hysteresis.cu``) in tensor ops on one
+    map: ``blocks`` bands of an even number of rows across the whole width,
+    each row's weak and strong flags packed ``bits`` to a word (32 in the
+    kernel); each band takes the ``iters`` rows of flags above and below it
+    from the bands that hold them, rows wrapping around the map, and runs
+    ``iters`` steps over the band and those rows, step t leaving out the
+    t + 1 rows at either end, a word at a time from three rows, shifted
+    within the word and carried across words, the column past either end
+    of a row wrapping to its other end."""
     h, w = mag.shape
-    out = torch.empty_like(mag)
-    for y0 in range(0, h, th):
-        for x0 in range(0, w, tw):
-            ys = torch.arange(y0 - iters, y0 + th + iters) % h
-            xs = torch.arange(x0 - iters, x0 + tw + iters) % w
-            tile = mag[ys][:, xs]
-            strong, weak = tile >= high, tile >= low
-            reach = strong
-            for _ in range(iters):
-                pad = torch.nn.functional.pad(reach, (1, 1, 1, 1))
-                dil = reach
-                for dy in range(3):
-                    for dx in range(3):
-                        dil = dil | pad[dy:dy + reach.shape[0],
-                                        dx:dx + reach.shape[1]]
-                reach = dil & weak
-            res = torch.where(reach | strong, tile, 0.0)
-            res = res[iters:iters + th, iters:iters + tw]
-            out[y0:y0 + th, x0:x0 + tw] = res[:h - y0, :w - x0]
-    return out
+    band = ((-(-h // blocks)) + 1) & ~1
+    kw = -(-w // bits)
+    full = (1 << bits) - 1
+    shifts = torch.arange(bits)
+
+    def pack(flags):
+        padded = torch.zeros((flags.shape[0], kw * bits), dtype=torch.int64)
+        padded[:, :w] = flags.long()
+        return (padded.view(-1, kw, bits) << shifts).sum(-1)
+
+    def spread(x):
+        last = (w - 1) % bits
+        left = torch.empty_like(x)
+        left[:, 1:] = x[:, :-1] >> (bits - 1)
+        left[:, 0] = (x[:, (w - 1) // bits] >> last) & 1
+        right = torch.empty_like(x)
+        right[:, :-1] = (x[:, 1:] << (bits - 1)) & full
+        right[:, -1] = (x[:, 0] & 1) << last
+        return (x | ((x << 1) & full) | left | (x >> 1) | right) & full
+
+    # Each band's own flags, as its block packs them.
+    cuts = [r0 for r0 in range(0, blocks * band, band) if r0 < h]
+    weak = {r0: pack(mag[r0:r0 + band] >= low) for r0 in cuts}
+    strong = {r0: pack(mag[r0:r0 + band] >= high) for r0 in cuts}
+    out = []
+    for r0 in cuts:
+        rows = weak[r0].shape[0]
+        # Extended row e is map row r0 - iters + e, from the band holding
+        # it.
+        ys = [(r0 - iters + e) % h for e in range(rows + 2 * iters)]
+        wk = torch.stack([weak[y - y % band][y % band] for y in ys])
+        rc = torch.stack([strong[y - y % band][y % band] for y in ys])
+        ext = rows + 2 * iters
+        for t in range(iters):
+            lo, hi = t + 1, ext - t - 1
+            rn = rc.clone()
+            rn[lo:hi] = (spread(rc[lo - 1:hi - 1]) | spread(rc[lo:hi]) |
+                         spread(rc[lo + 1:hi + 1])) & wk[lo:hi]
+            rc = rn
+        out.append(rc[iters:iters + rows])
+    bits_set = (torch.cat(out)[..., None] >> shifts) & 1
+    hit = bits_set.view(h, kw * bits)[:, :w].bool()
+    return torch.where(hit | (mag >= high), mag, 0.0)
 
 
-@pytest.mark.parametrize("hw, tile", [((37, 53), (8, 16)), ((5, 70), (8, 16)),
-                                      ((33, 7), (32, 128))])
+@pytest.mark.parametrize("hw, tile", [
+    ((37, 53), (8, 32)), ((5, 70), (8, 32)), ((33, 7), (8, 32)),
+    ((37, 53), (8, 8)), ((70, 45), (16, 32)), ((1, 33), (8, 32)),
+    ((2, 64), (8, 32)), ((256, 256), (8, 32))])
 def test_hysteresis_tiling_equals_plain(hw, tile):
-    """Tiles with an ``iters`` halo and modular indices give the plain
-    version's result on shapes that no tile divides, also where the halo
-    wraps around the map more than once."""
-    mags = _hysteresis_maps(n=2, hw=hw, seed=9)
+    """The kernel's bands, ``tile`` = (blocks a cluster, columns a flag
+    word), each with ``iters`` rows of flags taken from the bands on either
+    side, give the plain version's result: bands of 2 to 34 rows, blocks
+    past the map's last row, rows beyond a band wrapping around the map
+    more than once, a map of one row, partial words, and at 8-bit words a
+    carry across several words a row."""
+    if hw[0] > 1:
+        mags = _hysteresis_maps(n=2, hw=hw, seed=9)
+    else:
+        rng = np.random.default_rng(9)
+        mags = rng.random((2, *hw), dtype=np.float32) * 0.6
+        mags[:, 0, ::7] = 0.9
     for m in mags:
         for iters in (0, 1, 4, 8):
             ref = hysteresis_kernel.hysteresis_ref(_t(m), 0.3, 0.8, iters)
-            ours = _hysteresis_tiled(_t(m), 0.3, 0.8, iters, *tile)
+            ours = _hysteresis_banded(_t(m), 0.3, 0.8, iters, *tile)
             assert torch.equal(ours, ref), (hw, iters)
 
 
