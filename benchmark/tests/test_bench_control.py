@@ -1,0 +1,32 @@
+"""The control of ``correct``, on the card: the plain reference in the
+program's place, with its canonical images, the tracker's canvases and
+the scan's arithmetic in bfloat16, the precision below the
+configurations' float32, fails at least one of a cell's limits, where the
+program passes all of them. At the cells' 1080p frames with four streams
+and a pool of 4 batches, so that a test run holds it; the cells' own size
+is read by ``benchmark/calibrate.py``."""
+
+from __future__ import annotations
+
+import pytest
+
+from benchmark import calibrate, spec
+
+SEEDS = (2 ** 31 + 11, 2 ** 31 + 12, 2 ** 31 + 13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["fixed19.streams",
+                                      "handheld19.streams"])
+def test_control_fails_a_limit(cuda_device, workload):
+    cell = spec.load_cell(workload)
+    cell.config["streams"] = 4
+    cell.mix["pool_batches"] = 4
+    limits = {c["name"]: c["limit"] for c in cell.config["checks"]}
+    for seed in SEEDS:
+        program, control = calibrate.readings(cell, seed, 6, True,
+                                              cuda_device)
+        assert all(v <= limits[k] for k, v in program["numbers"].items()), \
+            program
+        assert any(v > limits[k] for k, v in control["numbers"].items()), \
+            control
