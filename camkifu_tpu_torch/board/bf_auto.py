@@ -42,6 +42,7 @@ from camkifu_tpu_torch.ops.lens import Lens, as_table, check_lens, \
 from camkifu_tpu_torch.ops.warp import _inv3, _shifted_crop, \
     apply_homography, canonical_corners, homography_dlt, square, warp_frames
 from camkifu_tpu_torch.ops.zones import median_u8
+from camkifu_tpu_torch.utils.profiling import span
 
 #: Rectification resolution for the grid-comb refinement.
 REFINE_RES = 320
@@ -1868,87 +1869,91 @@ def rectify_track_streams(frames: torch.Tensor, seeds: torch.Tensor,
     stream: the chunk's warp then reads a lens a frame, its table made
     once a call.
     """
-    check_lens(lenses)
-    n_streams, b = frames.shape[0], frames.shape[1]
-    dev = frames.device
-    scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
-    fc = _chunks(frames, chunk, dim=1)               # (n, k, chunk, ...)
+    with span("camkifu.rectify_track_streams"):
+        check_lens(lenses)
+        n_streams, b = frames.shape[0], frames.shape[1]
+        dev = frames.device
+        scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
+        fc = _chunks(frames, chunk, dim=1)               # (n, k, chunk, ...)
 
-    size = gsize * zone                      # canonical side (304)
-    pad = pad_cells * zone                   # drift margin (16)
-    E = size + 2 * pad                       # expanded canvas (336)
-    lo = pad + zone / 2.0 - 0.5
-    hi = pad + size - zone / 2.0 - 0.5
-    anchors = square(lo, hi, dev)
-    # Correlation window must stay under one cell (the lattice is
-    # periodic) and inside the crop margin.
-    S = min(pad - 2, int(round(TRACK_WIN_OFFSET * zone)))
-    geom = _half_geometry(anchors, E, gsize)
+        size = gsize * zone                      # canonical side (304)
+        pad = pad_cells * zone                   # drift margin (16)
+        E = size + 2 * pad                       # expanded canvas (336)
+        lo = pad + zone / 2.0 - 0.5
+        hi = pad + size - zone / 2.0 - 0.5
+        anchors = square(lo, hi, dev)
+        # Correlation window must stay under one cell (the lattice is
+        # periodic) and inside the crop margin.
+        S = min(pad - 2, int(round(TRACK_WIN_OFFSET * zone)))
+        geom = _half_geometry(anchors, E, gsize)
 
-    # The warp's lens: shared numbers as they are, or one row a frame.
-    warp_lens = lenses
-    if lenses is not None and isinstance(lenses.k1, torch.Tensor):
-        warp_lens = as_table(lenses)[:, None].expand(n_streams, chunk, 5) \
-            .reshape(-1, 5)
+        # The warp's lens: shared numbers as they are, or one row a frame.
+        warp_lens = lenses
+        if lenses is not None and isinstance(lenses.k1, torch.Tensor):
+            warp_lens = as_table(lenses)[:, None].expand(n_streams, chunk, 5) \
+                .reshape(-1, 5)
 
-    seed = seeds.to(torch.float32)                             # (n, 4, 2)
-    ref_col = ref_row = None
-    out_canon, out_cs, out_sharp, out_align = [], [], [], []
-    for j in range(fc.shape[1]):
-        # Raw corners, a pinhole canvas: the lattice stays straight.
-        H = homography_dlt(anchors, undistort_pts(lenses, seed))  # (n, 3, 3)
-        hmats = H[:, None].expand(n_streams, chunk, 3, 3) \
-            .reshape(-1, 3, 3)
-        rect = warp_frames(fc[:, j].reshape(-1, *fc.shape[3:]), hmats,
-                           (E, E), scale, warp_lens)  # (n·chunk, E, E, 3)
-        profiles = _split_profiles(
-            rgb_to_gray(rect).reshape(n_streams, chunk, E, E), gsize)
-        cols, rows = profiles[0], profiles[1]                  # (n, chunk, E)
-        if ref_col is None:
-            ref_col, ref_row = cols[:, 0], rows[:, 0]
-        dx, dy, theta, sigma, sharp, ok = _held_measure(
-            profiles, ref_col, ref_row, S, geom, gsize)
+        seed = seeds.to(torch.float32)                             # (n, 4, 2)
+        ref_col = ref_row = None
+        out_canon, out_cs, out_sharp, out_align = [], [], [], []
+        for j in range(fc.shape[1]):
+            # Raw corners, a pinhole canvas: the lattice stays straight.
+            H = homography_dlt(anchors,
+                               undistort_pts(lenses, seed))      # (n, 3, 3)
+            hmats = H[:, None].expand(n_streams, chunk, 3, 3) \
+                .reshape(-1, 3, 3)
+            rect = warp_frames(fc[:, j].reshape(-1, *fc.shape[3:]), hmats,
+                               (E, E), scale, warp_lens)  # (n·chunk, E, E, 3)
+            profiles = _split_profiles(
+                rgb_to_gray(rect).reshape(n_streams, chunk, E, E), gsize)
+            cols, rows = profiles[0], profiles[1]          # (n, chunk, E)
+            if ref_col is None:
+                ref_col, ref_row = cols[:, 0], rows[:, 0]
+            dx, dy, theta, sigma, sharp, ok = _held_measure(
+                profiles, ref_col, ref_row, S, geom, gsize)
 
-        # Absolute lattice lock: here the seed-implied comb is exactly the
-        # static anchors (teeth at lo + k·zone), one pitch for both axes.
-        e_lock = _abs_lock_update(cols[:, 0], rows[:, 0], lo, lo,
-                                  float(zone), float(zone), dx[:, 0],
-                                  dy[:, 0], ok[:, 0],
-                                  dx.new_zeros(2, n_streams), S, gsize)
-        dx = dx + e_lock[0][:, None]
-        dy = dy + e_lock[1][:, None]
+            # Absolute lattice lock: here the seed-implied comb is exactly the
+            # static anchors (teeth at lo + k·zone), one pitch for both axes.
+            e_lock = _abs_lock_update(cols[:, 0], rows[:, 0], lo, lo,
+                                      float(zone), float(zone), dx[:, 0],
+                                      dy[:, 0], ok[:, 0],
+                                      dx.new_zeros(2, n_streams), S, gsize)
+            dx = dx + e_lock[0][:, None]
+            dy = dy + e_lock[1][:, None]
 
-        # Canonical crop at the integer offset, then sub-pixel shift by the
-        # fractional remainder. The offset is clamped to the pad−1 integer
-        # headroom + the ±2 px shift range FIRST: dx = correlation (≤ S) +
-        # lattice lock can exceed pad−1, and an unclamped remainder would
-        # saturate inside the shift, mis-cropping the chunk. Beyond the
-        # clamp the canvas does not contain the needed pixels; the corner
-        # outputs keep the true measurement and the next re-anchor
-        # recovers.
-        dc = torch.clamp(torch.stack([dx, dy], -1), -(pad + 1.0), pad + 1.0)
-        ic = torch.clamp(torch.round(dc), -(pad - 1), pad - 1)
-        canon = _shifted_crop(rect, pad + ic.reshape(-1, 2).long(), size,
-                              (dc - ic).reshape(-1, 2))
-        out_canon.append(canon.reshape(n_streams, chunk, *canon.shape[1:]))
+            # Canonical crop at the integer offset, then sub-pixel shift by
+            # the fractional remainder. The offset is clamped to the pad−1
+            # integer headroom + the ±2 px shift range FIRST: dx =
+            # correlation (≤ S) + lattice lock can exceed pad−1, and an
+            # unclamped remainder would saturate inside the shift,
+            # mis-cropping the chunk. Beyond the clamp the canvas does not
+            # contain the needed pixels; the corner outputs keep the true
+            # measurement and the next re-anchor recovers.
+            dc = torch.clamp(torch.stack([dx, dy], -1), -(pad + 1.0),
+                             pad + 1.0)
+            ic = torch.clamp(torch.round(dc), -(pad - 1), pad - 1)
+            canon = _shifted_crop(rect, pad + ic.reshape(-1, 2).long(), size,
+                                  (dc - ic).reshape(-1, 2))
+            out_canon.append(
+                canon.reshape(n_streams, chunk, *canon.shape[1:]))
 
-        cs = distort_pts(lenses, apply_homography(
-            H[:, None], _apply_similarity(anchors, dx, dy, theta, sigma)))
-        out_cs.append(cs)
-        out_sharp.append(sharp)
-        out_align.append(
-            _align_quality(cols, rows, anchors, dx, dy, sigma, gsize))
-        # The next chunk re-anchors at the last frame's corners: its
-        # lattice lands back at ``anchors``, so the old reference needs no
-        # shift and the last profile realigns by its own translation.
-        seed = cs[:, -1]
-        ref_col = (1 - TRACK_REF_EMA) * ref_col \
-            + TRACK_REF_EMA * _profile_shift(cols[:, -1], dx[:, -1])
-        ref_row = (1 - TRACK_REF_EMA) * ref_row \
-            + TRACK_REF_EMA * _profile_shift(rows[:, -1], dy[:, -1])
-    return (torch.cat(out_canon, 1)[:, :b], torch.cat(out_cs, 1)[:, :b],
-            torch.cat(out_sharp, 1)[:, :b], torch.cat(out_align, 1)[:, :b],
-            seed)
+            cs = distort_pts(lenses, apply_homography(
+                H[:, None], _apply_similarity(anchors, dx, dy, theta, sigma)))
+            out_cs.append(cs)
+            out_sharp.append(sharp)
+            out_align.append(
+                _align_quality(cols, rows, anchors, dx, dy, sigma, gsize))
+            # The next chunk re-anchors at the last frame's corners: its
+            # lattice lands back at ``anchors``, so the old reference needs no
+            # shift and the last profile realigns by its own translation.
+            seed = cs[:, -1]
+            ref_col = (1 - TRACK_REF_EMA) * ref_col \
+                + TRACK_REF_EMA * _profile_shift(cols[:, -1], dx[:, -1])
+            ref_row = (1 - TRACK_REF_EMA) * ref_row \
+                + TRACK_REF_EMA * _profile_shift(rows[:, -1], dy[:, -1])
+        return (torch.cat(out_canon, 1)[:, :b], torch.cat(out_cs, 1)[:, :b],
+                torch.cat(out_sharp, 1)[:, :b], torch.cat(out_align, 1)[:, :b],
+                seed)
 
 
 # ---------------------------------------------------------------------------

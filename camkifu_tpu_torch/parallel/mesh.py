@@ -35,6 +35,7 @@ from camkifu_tpu_torch.ops.lens import Lens, check_lens
 from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt, \
     warp_frames
 from camkifu_tpu_torch.stone import sf_clustering, sf_meta
+from camkifu_tpu_torch.utils.profiling import span
 
 
 # -- the mesh ----------------------------------------------------------------
@@ -231,11 +232,12 @@ def multistream_read_meta(states, frames: torch.Tensor,
     launch, then the stream-batched vote scan, on each shard. Returns
     (states, labels (n, B, g, g), conf (n, B, g, g), agitation (n, B));
     with a ``mesh``, each a ``Sharded`` (``states`` may be one already)."""
-    if mesh is None:
-        return _read_meta(states, frames, corners, gsize, zone)
-    return _run_sharded(mesh, _read_meta, shard(states, mesh),
-                        shard(frames, mesh), shard(corners, mesh), gsize,
-                        zone)
+    with span("camkifu.multistream_read_meta"):
+        if mesh is None:
+            return _read_meta(states, frames, corners, gsize, zone)
+        return _run_sharded(mesh, _read_meta, shard(states, mesh),
+                            shard(frames, mesh), shard(corners, mesh), gsize,
+                            zone)
 
 
 def _track_read(states, frames, seeds, lenses, gsize, zone):
@@ -267,13 +269,14 @@ def multistream_track_read(states, frames: torch.Tensor, seeds: torch.Tensor,
     (n, B, 4, 2), sharpness (n, B), align (n, B), new_seeds (n, 4, 2));
     with a ``mesh``, each a ``Sharded``.
     """
-    if mesh is None:
-        return _track_read(states, frames, seeds, lenses, gsize, zone)
-    if not isinstance(lenses, Sharded):
-        check_lens(lenses)
-    if isinstance(lenses, Sharded) or (
-            lenses is not None and isinstance(lenses.k1, torch.Tensor)):
-        lenses = shard(lenses, mesh)
-    return _run_sharded(mesh, _track_read, shard(states, mesh),
-                        shard(frames, mesh), shard(seeds, mesh), lenses,
-                        gsize, zone)
+    with span("camkifu.multistream_track_read"):
+        if mesh is None:
+            return _track_read(states, frames, seeds, lenses, gsize, zone)
+        if not isinstance(lenses, Sharded):
+            check_lens(lenses)
+        if isinstance(lenses, Sharded) or (
+                lenses is not None and isinstance(lenses.k1, torch.Tensor)):
+            lenses = shard(lenses, mesh)
+        return _run_sharded(mesh, _track_read, shard(states, mesh),
+                            shard(frames, mesh), shard(seeds, mesh), lenses,
+                            gsize, zone)

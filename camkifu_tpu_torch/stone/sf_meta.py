@@ -30,6 +30,7 @@ from camkifu_tpu_torch.ops.zones import zone_stats
 from camkifu_tpu_torch.stone import sf_clustering, sf_contours
 from camkifu_tpu_torch.stone.sf_neural import zone_probs
 from camkifu_tpu_torch.stone.votes import vote_update, zone_motion_gate
+from camkifu_tpu_torch.utils.profiling import span
 
 #: Region-trust EMA rate and the threshold above which a region switches
 #: from contours to clustering (the reference's calibration→search promote).
@@ -171,91 +172,94 @@ def scan_streams(states: MetaState, canon: torch.Tensor, gsize: int,
                         "(params_from_jax converts a flax tree)")
     n, b = canon.shape[0], canon.shape[1]
     dev = canon.device
-    flat = canon.reshape(n * b, *canon.shape[2:])
-    luma_small = background.downsample_luma(rgb_to_gray(flat), BG_FACTOR)
+    with span("camkifu.scan_streams.classify"):
+        flat = canon.reshape(n * b, *canon.shape[2:])
+        luma_small = background.downsample_luma(rgb_to_gray(flat), BG_FACTOR)
 
-    # One shared zone-statistics pass feeds both classifiers.
-    stats = zone_stats(flat, gsize, zone)
-    lab_cont, conf_cont = sf_contours.classify_stats(stats, zone)
-    lab_clus, conf_clus = sf_clustering.classify_stats(stats)
-    del stats
-    lab_cont, conf_cont, lab_clus, conf_clus = (
-        x.reshape(n, b, gsize, gsize)
-        for x in (lab_cont, conf_cont, lab_clus, conf_clus))
-    if neural_params is not None:
-        # Third voter (opt-in: only when a trained checkpoint exists). It
-        # competes per intersection by confidence like the others; its
-        # softmax max is discounted (CNNs are overconfident) so it breaks
-        # ties rather than overruling a decisive classical read.
-        probs = zone_probs(neural_params, flat, gsize, zone) \
-            .reshape(n, b, gsize, gsize, 3)
-        lab_nn = torch.argmax(probs, dim=-1).to(torch.int8)
-        conf_nn = 0.85 * probs.amax(dim=-1)
-    else:
-        lab_nn = torch.zeros_like(lab_cont)
-        conf_nn = torch.full_like(conf_cont, -1.0)
-    luma_small = luma_small.reshape(n, b, *luma_small.shape[1:])
+        # One shared zone-statistics pass feeds both classifiers.
+        stats = zone_stats(flat, gsize, zone)
+        lab_cont, conf_cont = sf_contours.classify_stats(stats, zone)
+        lab_clus, conf_clus = sf_clustering.classify_stats(stats)
+        del stats
+        lab_cont, conf_cont, lab_clus, conf_clus = (
+            x.reshape(n, b, gsize, gsize)
+            for x in (lab_cont, conf_cont, lab_clus, conf_clus))
+        if neural_params is not None:
+            # Third voter (opt-in: only when a trained checkpoint exists). It
+            # competes per intersection by confidence like the others; its
+            # softmax max is discounted (CNNs are overconfident) so it breaks
+            # ties rather than overruling a decisive classical read.
+            probs = zone_probs(neural_params, flat, gsize, zone) \
+                .reshape(n, b, gsize, gsize, 3)
+            lab_nn = torch.argmax(probs, dim=-1).to(torch.int8)
+            conf_nn = 0.85 * probs.amax(dim=-1)
+        else:
+            lab_nn = torch.zeros_like(lab_cont)
+            conf_nn = torch.full_like(conf_cont, -1.0)
+        luma_small = luma_small.reshape(n, b, *luma_small.shape[1:])
 
-    # Motion gates: prev of frame i is frame i−1 (each stream's state
-    # carries its batch boundary).
-    prev0 = torch.where(states.prev[:, :1, :1] < 0, luma_small[:, 0],
-                        states.prev)
-    prevs = torch.cat([prev0[:, None], luma_small[:, :-1]], dim=1)
-    zone_calm, agitation = zone_motion_gate(luma_small, prevs, gsize)
+        # Motion gates: prev of frame i is frame i−1 (each stream's state
+        # carries its batch boundary).
+        prev0 = torch.where(states.prev[:, :1, :1] < 0, luma_small[:, 0],
+                            states.prev)
+        prevs = torch.cat([prev0[:, None], luma_small[:, :-1]], dim=1)
+        zone_calm, agitation = zone_motion_gate(luma_small, prevs, gsize)
 
-    region, counts = _regions(gsize, dev)
-    agree = (lab_cont == lab_clus).to(torch.float32).reshape(n, b, -1)
-    region_agree = (torch.zeros((n, b, 9), dtype=torch.float32, device=dev)
-                    .index_add_(2, region, agree) / counts) \
-        .reshape(n, b, 3, 3)
+        region, counts = _regions(gsize, dev)
+        agree = (lab_cont == lab_clus).to(torch.float32).reshape(n, b, -1)
+        region_agree = (torch.zeros((n, b, 9), dtype=torch.float32, device=dev)
+                        .index_add_(2, region, agree) / counts) \
+            .reshape(n, b, 3, 3)
 
-    cfg = cvconf.DEFAULT
-    if valid_count is None:
-        valid = torch.ones((b,), dtype=torch.bool, device=dev)
-    else:
-        valid = torch.arange(b, device=dev) < valid_count
+        cfg = cvconf.DEFAULT
+        if valid_count is None:
+            valid = torch.ones((b,), dtype=torch.bool, device=dev)
+        else:
+            valid = torch.arange(b, device=dev) < valid_count
 
-    votes, stable, bg, trust = states.votes, states.stable, states.bg, \
-        states.trust
-    out_labels, out_conf = [], []
-    for i in range(b):
-        calm = (agitation[:, i] <= cfg.agitation_threshold)[:, None, None]
-        new_trust = torch.where(
-            calm, trust * (1 - TRUST_EMA) + region_agree[:, i] * TRUST_EMA,
-            trust)
-        trust_per = new_trust.reshape(n, 9)[:, region] \
-            .reshape(n, gsize, gsize)
-        # Eligible readings compete by confidence: contours always,
-        # clustering once its region's trust promotes, the net when given.
-        ck_eff = torch.where(trust_per >= TRUST_PROMOTE, conf_clus[:, i],
-                             -1.0)
-        confs = torch.stack([conf_cont[:, i], ck_eff, conf_nn[:, i]])
-        labs = torch.stack([lab_cont[:, i], lab_clus[:, i], lab_nn[:, i]])
-        pick = torch.argmax(confs, dim=0, keepdim=True)      # (1, n, g, g)
-        labels = torch.gather(labs, 0, pick)[0]
-        conf = torch.gather(confs, 0, pick)[0]
-        new_votes, new_stable, new_conf = vote_update(
-            votes, stable, labels, conf, zone_calm[:, i], cfg)
-        new_bg = background.update_background(
-            torch.where(bg[:, :1, :1] < 0, luma_small[:, i], bg),
-            luma_small[:, i], agitation[:, i], cfg.background_ema)
-        # Padded frames emit the current stable reading but leave the carry
-        # untouched.
-        old_conf = torch.clamp(votes.amax(dim=-1) / cfg.vote_window, 0.0, 1.0)
-        v = valid[i]
-        votes = torch.where(v, new_votes, votes)
-        stable = torch.where(v, new_stable, stable)
-        bg = torch.where(v, new_bg, bg)
-        trust = torch.where(v, new_trust, trust)
-        out_labels.append(stable)
-        out_conf.append(torch.where(v, new_conf, old_conf))
+    with span("camkifu.scan_streams.votes"):
+        votes, stable, bg, trust = states.votes, states.stable, states.bg, \
+            states.trust
+        out_labels, out_conf = [], []
+        for i in range(b):
+            calm = (agitation[:, i] <= cfg.agitation_threshold)[:, None, None]
+            new_trust = torch.where(
+                calm, trust * (1 - TRUST_EMA) + region_agree[:, i] * TRUST_EMA,
+                trust)
+            trust_per = new_trust.reshape(n, 9)[:, region] \
+                .reshape(n, gsize, gsize)
+            # Eligible readings compete by confidence: contours always,
+            # clustering once its region's trust promotes, the net when given.
+            ck_eff = torch.where(trust_per >= TRUST_PROMOTE, conf_clus[:, i],
+                                 -1.0)
+            confs = torch.stack([conf_cont[:, i], ck_eff, conf_nn[:, i]])
+            labs = torch.stack([lab_cont[:, i], lab_clus[:, i], lab_nn[:, i]])
+            pick = torch.argmax(confs, dim=0, keepdim=True)      # (1, n, g, g)
+            labels = torch.gather(labs, 0, pick)[0]
+            conf = torch.gather(confs, 0, pick)[0]
+            new_votes, new_stable, new_conf = vote_update(
+                votes, stable, labels, conf, zone_calm[:, i], cfg)
+            new_bg = background.update_background(
+                torch.where(bg[:, :1, :1] < 0, luma_small[:, i], bg),
+                luma_small[:, i], agitation[:, i], cfg.background_ema)
+            # Padded frames emit the current stable reading but leave the carry
+            # untouched.
+            old_conf = torch.clamp(votes.amax(dim=-1) / cfg.vote_window, 0.0,
+                                   1.0)
+            v = valid[i]
+            votes = torch.where(v, new_votes, votes)
+            stable = torch.where(v, new_stable, stable)
+            bg = torch.where(v, new_bg, bg)
+            trust = torch.where(v, new_trust, trust)
+            out_labels.append(stable)
+            out_conf.append(torch.where(v, new_conf, old_conf))
 
-    new_states = MetaState(
-        votes=votes, stable=stable, bg=bg, prev=luma_small[:, -1],
-        trust=trust,
-        frame_count=states.frame_count + valid.sum().to(torch.int32))
-    return new_states, torch.stack(out_labels, 1), \
-        torch.stack(out_conf, 1), agitation
+        new_states = MetaState(
+            votes=votes, stable=stable, bg=bg, prev=luma_small[:, -1],
+            trust=trust,
+            frame_count=states.frame_count + valid.sum().to(torch.int32))
+        return new_states, torch.stack(out_labels, 1), \
+            torch.stack(out_conf, 1), agitation
 
 
 def track_read_batch(state: MetaState, frames: torch.Tensor,

@@ -1,18 +1,32 @@
-"""Observability: structured per-batch stats and torch.profiler hooks.
+"""Observability: per-batch stats, and the program's spans in a profiler
+trace.
 
 ``BatchStats`` is copied from camkifu_tpu/utils/profiling.py: every batch
 can emit a structured record (fps, agitation, votes, detection status) to
-an optional JSONL sink. ``profile_trace`` and ``annotate`` are the
-reference's jax.profiler hooks on ``torch.profiler``: a trace of the host
-and the card around any span, and a named range inside it.
+an optional JSONL sink.
+
+``span(name)`` marks a stretch of the program's host code for whoever is
+recording a ``torch.profiler`` trace. While a session records, it is a
+``record_function`` range: a host event named ``name`` in the same Kineto
+trace as the kernels, on the same clock, kept in memory with the rest of
+the trace, its parent the span that encloses it on the thread. While none
+records, it is one shared null context: one boolean read, no
+``record_function``, no allocation, no clock read. The switch is the
+profiler session itself; there is no flag of its own. Every span's name
+starts with ``camkifu.``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-import os
 import time
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+#: What ``span`` returns while no profiler session records.
+_NULL_SPAN = contextlib.nullcontext()
 
 
 class BatchStats:
@@ -51,26 +65,9 @@ class BatchStats:
             self._sink = None
 
 
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """Trace the host and the card (torch.profiler) and write the trace as
-    Chrome JSON under ``log_dir`` (view in Perfetto or chrome://tracing)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named span inside a profiler trace."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield
+def span(name: str):
+    """A named host range in the profiler's trace while a session records
+    (``torch.profiler.record_function``), else a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
