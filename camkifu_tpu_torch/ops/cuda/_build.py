@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("warp.cu", "edge.cu", "hough.cu", "hysteresis.cu",
-           "pcg_normal.cu")
+           "pcg_normal.cu", "vote_scan.cu")
 HEADERS = ("common.cuh", "ziggurat_tables.cuh")
 BUILD_DIR = _PKG.parent / "build" / "camkifu_kernels"
 
@@ -58,6 +58,9 @@ _SIGNATURES = {
     "camkifu_pcg_normal": [_P, _P, _I, _U64, _U64, _U64, _U64, _I, _D, _F,
                            _F, _P, _P],
     "camkifu_pcg_normal_scratch": [_I],
+    "camkifu_vote_scan": [ctypes.POINTER(_P), ctypes.POINTER(_F), _I, _I, _I,
+                          _I, _I, _P],
+    "camkifu_vote_scan_threads": [],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -6,9 +6,10 @@ veto, SGF resume, vote invalidation).
 
 The classifiers and the motion gate are stateless per frame and run on the
 whole batch at once. Only the carry (votes, stable board, background,
-region trust) is sequential: the reference's ``lax.scan`` becomes a Python
-loop over frames whose every branch is a ``torch.where``, so the loop
-never waits for the device.
+region trust) is sequential: the reference's ``lax.scan`` becomes
+``ops.cuda.vote_scan_kernel.vote_scan``, one kernel launch for every
+stream and frame on the card, and a Python loop over frames whose every
+branch is a ``torch.where`` on the CPU. Neither waits for the device.
 """
 
 from __future__ import annotations
@@ -25,17 +26,14 @@ from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.models import neural
 from camkifu_tpu_torch.ops import background
 from camkifu_tpu_torch.ops.color import rgb_to_gray
+from camkifu_tpu_torch.ops.cuda.vote_scan_kernel import TRUST_PROMOTE, \
+    regions, vote_scan
 from camkifu_tpu_torch.ops.warp import warp_batch_chunked, warp_batch_fixed
 from camkifu_tpu_torch.ops.zones import zone_stats
 from camkifu_tpu_torch.stone import sf_clustering, sf_contours
 from camkifu_tpu_torch.stone.sf_neural import zone_probs
-from camkifu_tpu_torch.stone.votes import vote_update, zone_motion_gate
+from camkifu_tpu_torch.stone.votes import zone_motion_gate
 from camkifu_tpu_torch.utils.profiling import span
-
-#: Region-trust EMA rate and the threshold above which a region switches
-#: from contours to clustering (the reference's calibration→search promote).
-TRUST_EMA = 0.08
-TRUST_PROMOTE = 0.9
 
 #: Background downsample factor (canonical → bg grid).
 BG_FACTOR = 4
@@ -106,21 +104,6 @@ def meta_state_from_numpy(state, device="cuda") -> MetaState:
 def meta_state_to_numpy(state: MetaState) -> dict:
     """The state as a dict of numpy arrays, by field name."""
     return {name: getattr(state, name).cpu().numpy() for name in _DTYPES}
-
-
-def _region_index(gsize: int) -> np.ndarray:
-    """(g, g) int: which of the 3×3 sub-boards each intersection belongs to."""
-    thirds = np.minimum(np.arange(gsize) * 3 // gsize, 2)
-    return (thirds[:, None] * 3 + thirds[None, :]).astype(np.int32)
-
-
-@functools.lru_cache(maxsize=8)
-def _regions(gsize: int, device):
-    """(flat region index (g·g,) int64, intersections per region (9,))."""
-    region = _region_index(gsize).reshape(-1)
-    counts = np.bincount(region, minlength=9).astype(np.float32)
-    return (torch.as_tensor(region, dtype=torch.int64, device=device),
-            torch.as_tensor(counts, device=device))
 
 
 def read_batch(state: MetaState, frames: torch.Tensor,
@@ -205,61 +188,24 @@ def scan_streams(states: MetaState, canon: torch.Tensor, gsize: int,
         prevs = torch.cat([prev0[:, None], luma_small[:, :-1]], dim=1)
         zone_calm, agitation = zone_motion_gate(luma_small, prevs, gsize)
 
-        region, counts = _regions(gsize, dev)
+        region, counts = regions(gsize, dev)
         agree = (lab_cont == lab_clus).to(torch.float32).reshape(n, b, -1)
         region_agree = (torch.zeros((n, b, 9), dtype=torch.float32, device=dev)
                         .index_add_(2, region, agree) / counts) \
             .reshape(n, b, 3, 3)
-
-        cfg = cvconf.DEFAULT
-        if valid_count is None:
-            valid = torch.ones((b,), dtype=torch.bool, device=dev)
-        else:
-            valid = torch.arange(b, device=dev) < valid_count
+        n_valid = b if valid_count is None else min(max(valid_count, 0), b)
 
     with span("camkifu.scan_streams.votes"):
-        votes, stable, bg, trust = states.votes, states.stable, states.bg, \
-            states.trust
-        out_labels, out_conf = [], []
-        for i in range(b):
-            calm = (agitation[:, i] <= cfg.agitation_threshold)[:, None, None]
-            new_trust = torch.where(
-                calm, trust * (1 - TRUST_EMA) + region_agree[:, i] * TRUST_EMA,
-                trust)
-            trust_per = new_trust.reshape(n, 9)[:, region] \
-                .reshape(n, gsize, gsize)
-            # Eligible readings compete by confidence: contours always,
-            # clustering once its region's trust promotes, the net when given.
-            ck_eff = torch.where(trust_per >= TRUST_PROMOTE, conf_clus[:, i],
-                                 -1.0)
-            confs = torch.stack([conf_cont[:, i], ck_eff, conf_nn[:, i]])
-            labs = torch.stack([lab_cont[:, i], lab_clus[:, i], lab_nn[:, i]])
-            pick = torch.argmax(confs, dim=0, keepdim=True)      # (1, n, g, g)
-            labels = torch.gather(labs, 0, pick)[0]
-            conf = torch.gather(confs, 0, pick)[0]
-            new_votes, new_stable, new_conf = vote_update(
-                votes, stable, labels, conf, zone_calm[:, i], cfg)
-            new_bg = background.update_background(
-                torch.where(bg[:, :1, :1] < 0, luma_small[:, i], bg),
-                luma_small[:, i], agitation[:, i], cfg.background_ema)
-            # Padded frames emit the current stable reading but leave the carry
-            # untouched.
-            old_conf = torch.clamp(votes.amax(dim=-1) / cfg.vote_window, 0.0,
-                                   1.0)
-            v = valid[i]
-            votes = torch.where(v, new_votes, votes)
-            stable = torch.where(v, new_stable, stable)
-            bg = torch.where(v, new_bg, bg)
-            trust = torch.where(v, new_trust, trust)
-            out_labels.append(stable)
-            out_conf.append(torch.where(v, new_conf, old_conf))
-
+        labels, conf, (votes, stable, bg, trust) = vote_scan(
+            (lab_cont, lab_clus, lab_nn), (conf_cont, conf_clus, conf_nn),
+            zone_calm, agitation, region_agree, luma_small,
+            tuple(x.contiguous() for x in (states.votes, states.stable,
+                                           states.bg, states.trust)),
+            n_valid)
         new_states = MetaState(
             votes=votes, stable=stable, bg=bg, prev=luma_small[:, -1],
-            trust=trust,
-            frame_count=states.frame_count + valid.sum().to(torch.int32))
-        return new_states, torch.stack(out_labels, 1), \
-            torch.stack(out_conf, 1), agitation
+            trust=trust, frame_count=states.frame_count + n_valid)
+        return new_states, labels, conf, agitation
 
 
 def track_read_batch(state: MetaState, frames: torch.Tensor,

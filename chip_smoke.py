@@ -24,8 +24,9 @@ once each, counting kernel launches per path:
   of a 1080p still at each, and ``infer_gsize`` on 9, 13 and 19 boards;
 - several streams (``parallel.mesh``): the film and handheld games seen by
   four cameras through ``multistream_read_meta`` and
-  ``multistream_track_read``, each stream held to its single-stream call,
-  then the same calls sharded over ``make_mesh()`` (every visible card,
+  ``multistream_track_read``, each stream held to its single-stream call
+  and every ``scan_streams`` call one vote scan launch, then the same
+  calls sharded over ``make_mesh()`` (every visible card,
   cut by ``fit_mesh`` to the longest prefix that divides the four
   streams) and over a two-entry mesh of the one card (``mesh=``), each
   stream held
@@ -135,6 +136,14 @@ HYSTERESIS_ITERS = 4
 LOW_FRAC, HIGH_FRAC = 0.15, 0.4
 #: (start, end, weight) triples the select's lerp is swept over.
 LERP_TRIPLES = 1_000_000
+#: The vote scan's shapes (streams, frames, board, valid frames): the
+#: benchmark cells' 8 streams × 16 frames of 19 × 19, one stream of a
+#: padded 32-frame batch (``read_batch``), and the smaller boards.
+VOTE_SCAN_SHAPES = ((8, 16, 19, 16), (1, 32, 19, 20), (8, 16, 9, 16),
+                    (8, 16, 13, 16))
+#: Agitations the vote scan's inputs draw from: calm, on the threshold
+#: (``cvconf.agitation_threshold`` as float32), agitated.
+VOTE_SCAN_AGITATIONS = (0.0, 0.005, 0.012, 0.0121, 0.05, 0.3)
 #: Calls per kernel time: the kernel, its plain version, the library call.
 KERNEL_REPS = 20
 PLAIN_REPS = 3
@@ -489,6 +498,19 @@ def bound_hysteresis(x) -> tuple[float, str]:
                   HYSTERESIS_OPS_PX * x.numel())
 
 
+def bound_vote_scan(args) -> tuple[float, str]:
+    """Every input read once and every output written once: the new carry
+    has the old one's bytes; labels and confidences a byte and a float an
+    intersection and frame. Its ~30 operations an intersection and frame
+    are far under the bytes' time."""
+    labs, confs, *mid, carry = args
+    tensors = [*labs, *confs, *mid, *carry]
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    nbytes += labs[0].numel() * 5 + sum(x.numel() * x.element_size()
+                                        for x in carry)
+    return _bound(nbytes, 0)
+
+
 def warp_sector_bytes(frames, H, out_hw: tuple[int, int]) -> int:
     """Bytes of the distinct 32-byte sectors that the taps of a warp
     through one homography ``H`` touch, summed over the frames, plus its
@@ -603,11 +625,11 @@ def _labels() -> "np.ndarray":
 
 def _kernel_modules() -> dict:
     from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
-        hysteresis_kernel, pcg_normal_kernel, warp_kernel
+        hysteresis_kernel, pcg_normal_kernel, vote_scan_kernel, warp_kernel
 
     return {"warp": warp_kernel, "edge": edge_kernel, "hough": hough_kernel,
             "hysteresis": hysteresis_kernel,
-            "pcg_normal": pcg_normal_kernel}
+            "pcg_normal": pcg_normal_kernel, "vote_scan": vote_scan_kernel}
 
 
 def _reset_counts() -> None:
@@ -630,13 +652,22 @@ def _read_counts() -> dict:
 VISION_KERNELS = ("warp", "edge", "hough", "hysteresis")
 
 
-def _require_launched(counts: dict, path: str) -> None:
-    for name in VISION_KERNELS:
+def _require_launched(counts: dict, path: str,
+                      kernels: tuple = VISION_KERNELS,
+                      scans: int | None = None) -> None:
+    """Every one of ``kernels`` ran on the path, the hysteresis after each
+    edge launch; with ``scans`` (the path's ``sf_meta.scan_streams``
+    calls), exactly one vote scan launch a call."""
+    for name in kernels:
         _require(counts[name][0] > 0,
                  f"the {name} kernel did not run on the {path} path")
     _require(counts["hysteresis"] == counts["edge"],
              f"the hysteresis kernel did not follow every edge launch on the "
              f"{path} path")
+    if scans is not None:
+        _require(counts["vote_scan"][0] == scans > 0,
+                 f"{counts['vote_scan'][0]} vote scan launches for {scans} "
+                 f"scan_streams calls on the {path} path")
 
 
 def phase_build(_build) -> None:
@@ -934,6 +965,154 @@ def phase_kernels(frames, corners) -> list[dict]:
                                                   256),
         _check_hough(pts, wts, rho_max, ""), bound_hough(pts, wts),
         main=True, splits=(pts, wts, rho_max)))
+    return cases
+
+
+def vote_scan_inputs(n: int, b: int, g: int, dev, seed: int,
+                     fresh: bool = False, nans: bool = False) -> tuple:
+    """Seeded arguments of ``vote_scan_kernel.vote_scan`` (all but the
+    valid count) on ``dev``: the three voters' labels and confidences (the
+    net's nonzero, a tenth of the clustering's tied with the contours'),
+    calm flags, agitations around the threshold, region agreements, small
+    luma and a carried state whose trust crosses the promote threshold;
+    ``fresh``: the state of ``sf_meta.init_state``; ``nans``: a fiftieth of
+    the confidences, calm flags, agitations and luma, and some votes,
+    NaN."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s = g * 16 // 4
+    f32 = np.float32
+    labs = [rng.integers(0, 3, (n, b, g, g)).astype(np.int8)
+            for _ in range(3)]
+    confs = [rng.random((n, b, g, g)).astype(f32) for _ in range(2)]
+    confs.append((0.85 * rng.random((n, b, g, g))).astype(f32))
+    tie = rng.random((n, b, g, g)) < 0.1
+    confs[1][tie] = confs[0][tie]
+    calm = (rng.random((n, b, g, g)) < 0.8).astype(f32)
+    agit = rng.choice(np.array(VOTE_SCAN_AGITATIONS, f32), (n, b))
+    ragree = (0.5 + 0.5 * rng.random((n, b, 3, 3))).astype(f32)
+    luma = rng.random((n, b, s, s)).astype(f32)
+    if fresh:
+        votes = np.zeros((n, g, g, 3), f32)
+        stable = np.zeros((n, g, g), np.int8)
+        bg = np.full((n, s, s), -1.0, f32)
+        trust = np.zeros((n, 3, 3), f32)
+    else:
+        votes = (6 * rng.random((n, g, g, 3))).astype(f32)
+        stable = rng.integers(0, 3, (n, g, g)).astype(np.int8)
+        bg = rng.random((n, s, s)).astype(f32)
+        trust = (0.85 + 0.1 * rng.random((n, 3, 3))).astype(f32)
+    if nans:
+        for a in (*confs, calm, agit, luma):
+            flat = a.reshape(-1)
+            flat[rng.choice(flat.size, max(1, flat.size // 50),
+                            replace=False)] = np.nan
+        votes.reshape(-1)[::97] = np.nan
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (tuple(map(t, labs)), tuple(map(t, confs)), t(calm), t(agit),
+            t(ragree), t(luma), (t(votes), t(stable), t(bg), t(trust)))
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equal, NaN matching any NaN."""
+    import torch
+
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    same = (a.view(torch.int32) == b.view(torch.int32)) \
+        | (torch.isnan(a) & torch.isnan(b))
+    return a.shape == b.shape and bool(same.all())
+
+
+def _check_vote_scan(args, valid_count: int, label: str) -> float:
+    """The vote scan kernel against its plain version on the card: every
+    output bitwise equal, one launch, no input written, no host wait.
+    Returns the largest difference (0.0)."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import vote_scan_kernel as vsk
+
+    labs, confs, *mid, carry = args
+    inputs = [*labs, *confs, *mid, *carry]
+    kept = [x.clone() for x in inputs]
+    before = vsk.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = vsk.vote_scan(*args, valid_count)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = vsk.vote_scan_ref(*args, valid_count)
+    torch.cuda.synchronize()
+    names = ("labels", "conf", "votes", "stable", "bg", "trust")
+    pairs = list(zip(names, (*got[:2], *got[2]), (*want[:2], *want[2])))
+    differ = [f"{k} ({int((a != b).sum())} of {a.numel()})"
+              for k, a, b in pairs if not _same_bits(a, b)]
+    err = max(float((a.double() - b.double()).nan_to_num().abs().max())
+              for _, a, b in pairs)
+    untouched = all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                    for a, b in zip(kept, inputs))
+    print(f"kernel vote_scan{label}: {tuple(labs[0].shape)}, valid "
+          f"{valid_count}: {'bitwise equal' if not differ else 'DIFFER: '}"
+          f"{', '.join(differ)}; max|kernel - plain| {err:.3g}; launches "
+          f"{vsk.launches - before}; inputs "
+          f"{'unwritten' if untouched else 'WRITTEN'}", flush=True)
+    _require(not differ, f"vote scan kernel{label} disagrees: "
+             f"{', '.join(differ)}")
+    _require(vsk.launches - before == 1, f"vote scan{label}: not one launch")
+    _require(untouched, f"vote scan{label} wrote its inputs")
+    return err
+
+
+def phase_vote_scan(dev) -> list[dict]:
+    """The vote scan kernel bitwise its plain version at
+    ``VOTE_SCAN_SHAPES``, from a fresh state, with NaN inputs, with every
+    frame padded; its refusals. Returns the timed cases."""
+    import torch
+
+    from camkifu_tpu_torch.ops.cuda import vote_scan_kernel as vsk
+
+    paths = {(8, 16, 19): "benchmark cells", (1, 32, 19): "read_batch, "
+             "padded", (8, 16, 9): "gsize 9", (8, 16, 13): "gsize 13"}
+    cases = []
+    for i, (n, b, g, vc) in enumerate(VOTE_SCAN_SHAPES):
+        args = vote_scan_inputs(n, b, g, dev, seed=i)
+        err = _check_vote_scan(args, vc, f" ({paths[(n, b, g)]})")
+        cases.append(_case(
+            "vote_scan", f"n = {n}, B = {b}, g = {g}, valid {vc}",
+            paths[(n, b, g)],
+            lambda args=args, vc=vc: vsk.vote_scan(*args, vc),
+            lambda args=args, vc=vc: vsk.vote_scan_ref(*args, vc),
+            err, bound_vote_scan(args), main=(n, b, g) == (8, 16, 19)))
+    _check_vote_scan(vote_scan_inputs(8, 16, 19, dev, 10, fresh=True), 16,
+                     " (fresh state)")
+    _check_vote_scan(vote_scan_inputs(8, 16, 19, dev, 11, nans=True), 11,
+                     " (NaN inputs)")
+    _check_vote_scan(vote_scan_inputs(2, 8, 13, dev, 12), 0,
+                     " (every frame padded)")
+    labs, confs, zc, ag, ra, luma, carry = vote_scan_inputs(1, 4, 19, dev,
+                                                            13)
+    refused = []
+    for what, call in (
+            ("non-contiguous", lambda: vsk.vote_scan(
+                labs, confs, zc, ag, ra, luma,
+                (carry[0].transpose(1, 2), *carry[1:]), 4)),
+            ("20 × 20 board", lambda: vsk.vote_scan(*vote_scan_inputs(
+                1, 2, 20, dev, 14), 2)),
+            ("a CPU input", lambda: vsk.vote_scan(
+                labs, confs, zc.cpu(), ag, ra, luma, carry, 4))):
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+    print(f"kernel vote_scan refuses: {', '.join(refused)}", flush=True)
+    _require(len(refused) == 3, "vote scan: a bad input was not refused")
+    torch.cuda.synchronize()
     return cases
 
 
@@ -2069,6 +2248,8 @@ def phase_multistream(film: dict, handheld: dict, dev) -> dict:
              "multi-stream: card and CPU disagree")
     _require(counts["warp"][0] == n_meta + n_track,
              "multi-stream: not one warp launch a batch for every stream")
+    _require_launched(counts, "multi-stream", kernels=("warp",),
+                      scans=n_meta + n_track)
 
     # The same calls sharded over meshes: every visible card (its longest
     # prefix that divides the streams), and two entries of this card.
@@ -2118,6 +2299,8 @@ def phase_multistream(film: dict, handheld: dict, dev) -> dict:
                  f"differ from the one-device call")
         _require(mesh_paths[label]["warp"][0] == len(m) * (n_meta + n_track),
                  f"{label}: not one warp launch a batch on every shard")
+        _require_launched(mesh_paths[label], label, kernels=("warp",),
+                          scans=len(m) * (n_meta + n_track))
     return {"launches": counts, "mesh": mesh_paths}
 
 
@@ -4638,6 +4821,9 @@ SOURCES = {
                    "camkifu_tpu/utils/synth.py:322-332 (numpy's "
                    "Generator.normal / standard_normal on the host, no "
                    "Pallas kernel)"),
+    "vote_scan": ("camkifu_tpu_torch/csrc/vote_scan.cu",
+                  "camkifu_tpu/stone/sf_meta.py:220 the jax.lax.scan in "
+                  "_scan_canonical (one XLA loop, no Pallas kernel)"),
 }
 
 
@@ -4682,7 +4868,7 @@ def run_phases(dev, card: str) -> dict:
     torch.cuda.synchronize()
     print(f"input: {tuple(frames.shape)} uint8 on {dev}", flush=True)
     corners_dev = torch.from_numpy(corners_true).to(dev)
-    cases = phase_kernels(frames, corners_dev)
+    cases = phase_kernels(frames, corners_dev) + phase_vote_scan(dev)
     run = phase_main_path(frames, corners_true, labels)
     t = phase_times(frames, run["corners"], card)
     t0 = time.perf_counter()

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from camkifu_tpu_torch.ops.cuda import edge_kernel, hough_kernel, \
-    hysteresis_kernel, warp_kernel
+    hysteresis_kernel, vote_scan_kernel, warp_kernel
 from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt, \
     square
 from camkifu_tpu_torch.utils.still import default_corners, render_still
@@ -1399,3 +1399,116 @@ def test_multistream_on_a_two_entry_mesh_of_the_card_never_waits():
     one = mesh.multistream_track_read(mesh.multistream_init_states(4), fb,
                                       sd, mesh=mesh.make_mesh([dev]))
     assert all(torch.equal(a[0], b) for a, b in zip(one[1:], whole[1:]))
+
+
+def _vote_scan_args(n, b, g, dev, seed, fresh=False, nans=False):
+    """Seeded ``vote_scan`` arguments (all but the valid count): random
+    readings of the three voters with ties, agitations around the
+    threshold, a carried state whose trust crosses the promote threshold
+    (``fresh``: ``sf_meta.init_state``'s), a fiftieth of the floats NaN
+    with ``nans``."""
+    rng = np.random.default_rng(seed)
+    s = 4 * g
+    f32 = np.float32
+    labs = [rng.integers(0, 3, (n, b, g, g)).astype(np.int8)
+            for _ in range(3)]
+    confs = [rng.random((n, b, g, g)).astype(f32) for _ in range(3)]
+    tie = rng.random((n, b, g, g)) < 0.1
+    confs[1][tie] = confs[0][tie]
+    calm = (rng.random((n, b, g, g)) < 0.8).astype(f32)
+    agit = rng.choice(np.array([0.0, 0.012, 0.0121, 0.3], f32), (n, b))
+    ragree = (0.5 + 0.5 * rng.random((n, b, 3, 3))).astype(f32)
+    luma = rng.random((n, b, s, s)).astype(f32)
+    votes = np.zeros((n, g, g, 3), f32) if fresh else \
+        (6 * rng.random((n, g, g, 3))).astype(f32)
+    stable = rng.integers(0, 3 - 2 * fresh, (n, g, g)).astype(np.int8)
+    bg = np.full((n, s, s), -1.0, f32) if fresh else \
+        rng.random((n, s, s)).astype(f32)
+    trust = (0.85 + 0.1 * rng.random((n, 3, 3))).astype(f32)
+    if nans:
+        for a in (*confs, calm, agit, luma, votes):
+            flat = a.reshape(-1)
+            flat[rng.choice(flat.size, max(1, flat.size // 50),
+                            replace=False)] = np.nan
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return (tuple(map(t, labs)), tuple(map(t, confs)), t(calm), t(agit),
+            t(ragree), t(luma), (t(votes), t(stable), t(bg), t(trust)))
+
+
+def _bitwise(a, b):
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("n,b,g,valid,fresh,nans", [
+    (8, 16, 19, 16, False, False), (8, 16, 19, 16, True, False),
+    (1, 32, 19, 20, False, False), (8, 16, 9, 16, False, False),
+    (8, 16, 13, 16, False, False), (8, 16, 19, 11, False, True),
+    (2, 8, 13, 0, False, False)])
+def test_vote_scan_kernel_bitwise_equal_to_plain(n, b, g, valid, fresh,
+                                                 nans):
+    """Every output bitwise the plain version's on the card, in one launch
+    with no host wait, the inputs unwritten."""
+    dev = _device()
+    args = _vote_scan_args(n, b, g, dev, n * 1000 + b * 10 + g, fresh, nans)
+    labs, confs, *mid, carry = args
+    inputs = [*labs, *confs, *mid, *carry]
+    kept = [x.clone() for x in inputs]
+    before = vote_scan_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = vote_scan_kernel.vote_scan(*args, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert vote_scan_kernel.launches == before + 1
+    want = vote_scan_kernel.vote_scan_ref(*args, valid)
+    torch.cuda.synchronize()
+    for a, w in zip((*got[:2], *got[2]), (*want[:2], *want[2])):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert _bitwise(a, w)
+    assert all(_bitwise(a, w) for a, w in zip(kept, inputs))
+
+
+def test_vote_scan_kernel_refusals():
+    dev = _device()
+    labs, confs, zc, ag, ra, luma, carry = _vote_scan_args(1, 4, 19, dev, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        vote_scan_kernel.vote_scan(labs, confs, zc, ag, ra, luma,
+                                   (carry[0].transpose(1, 2), *carry[1:]), 4)
+    with pytest.raises(ValueError, match="one device"):
+        vote_scan_kernel.vote_scan(labs, confs, zc.cpu(), ag, ra, luma,
+                                   carry, 4)
+    with pytest.raises(ValueError, match="at most 384 intersections"):
+        vote_scan_kernel.vote_scan(*_vote_scan_args(1, 2, 20, dev, 4), 2)
+
+
+def test_scan_streams_is_one_vote_scan_launch():
+    """``multistream_read_meta`` on the card: one vote scan launch a call,
+    none waiting for the host, states carried."""
+    from camkifu_tpu_torch.parallel import mesh
+
+    dev = _device()
+    frames = _frames(dev, n=6)[None].expand(2, 6, 720, 1280, 3).contiguous()
+    corners = torch.from_numpy(default_corners((720, 1280))).to(dev)[None] \
+        .expand(2, 4, 2).contiguous()
+    states = mesh.multistream_init_states(2)
+    before = vote_scan_kernel.launches
+    states, labels, _, _ = mesh.multistream_read_meta(states, frames,
+                                                      corners)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, labels, _, _ = mesh.multistream_read_meta(states, frames,
+                                                          corners)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert vote_scan_kernel.launches == before + 2
+    assert states.frame_count.tolist() == [12, 12]
+    assert float(states.bg.min()) >= 0.0
