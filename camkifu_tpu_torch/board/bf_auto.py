@@ -58,6 +58,9 @@ DEROTATE_TRIP = float(np.deg2rad(0.7))
 #: be trusted (saturated boards read near-uniform orientations).
 DEROTATE_MIN_CONC = 0.12
 
+#: The least detection score that counts as a board found.
+DETECT_MIN_SCORE = 0.1
+
 
 def _f32(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
@@ -979,7 +982,8 @@ def infer_gsize(frame: torch.Tensor, candidates: tuple[int, ...] = (9, 13, 19),
     for g in candidates:
         _, sc, q = _gsize_quality(gray, quad, score, int(g))
         sc, q = float(sc), float(q)
-        quals[int(g)] = q if sc >= 0.1 and np.isfinite(q) else -1.0
+        quals[int(g)] = q if sc >= DETECT_MIN_SCORE and np.isfinite(q) \
+            else -1.0
     best = max(quals, key=lambda g: quals[g])
     return (best if quals[best] > 0.0 else 0), quals
 
@@ -1107,7 +1111,8 @@ def estimate_lens_k1(frame: torch.Tensor, gsize: int = 19,
     k1, gain = _k1_sweep(q_at, grid)
     if k1 != 0.0:
         corners, score, _ = _detect_k1_probe(frame, k1, gsize=gsize)
-        if float(score) >= 0.1 and bool(torch.isfinite(corners).all()):
+        if float(score) >= DETECT_MIN_SCORE \
+                and bool(torch.isfinite(corners).all()):
             zone = _cal_zone(gsize)
 
             def bow_at(k: float) -> float:
@@ -1345,9 +1350,17 @@ def _merge_routed(grays, quads, scores, corners, oks_host: np.ndarray,
             out.append(corners[lo:hi])
         else:
             out.append(torch.stack([
-                _detect_refine(grays[i], quads[i], scores[i], gsize)
+                _refine_one(grays[i], quads[i], scores[i], gsize)
                 for i in range(lo, hi)]))
     return torch.cat(out)
+
+
+def _refine_one(gray, quad, score, gsize: int):
+    """One frame refined alone (``_detect_refine``), in its own span: a
+    frame of a chunk that failed validation, or of a batch that no shared
+    canvas served."""
+    with span("camkifu.detect_batch.refine_one"):
+        return _detect_refine(gray, quad, score, gsize)
 
 
 def detect_batch(frames: torch.Tensor, res: int = cvconf.bf_resolution,
@@ -1360,14 +1373,35 @@ def detect_batch(frames: torch.Tensor, res: int = cvconf.bf_resolution,
     is refined on its own shared canvas and validated on the device. The
     host fetches the verdicts once; chunks that fail validation are
     refined frame by frame, as ``detect_corners`` refines.
+
+    Spans: ``camkifu.detect_batch`` around the call, holding
+    ``camkifu.detect_batch.coarse`` (stage 1: the edge, hysteresis and
+    Hough launches) and ``camkifu.detect_batch.refine`` (the shared-canvas
+    refines, the verdict fetch and any per-frame refine), which holds one
+    ``camkifu.detect_batch.refine_one`` a frame refined alone.
     """
-    grays, quads, scores = _detect_prepare_batch(frames, res)
-    merged = _detect_batch_routed(grays, quads, scores, gsize)
-    if merged is not None:
+    with span("camkifu.detect_batch"):
+        with span("camkifu.detect_batch.coarse"):
+            grays, quads, scores = _detect_prepare_batch(frames, res)
+        with span("camkifu.detect_batch.refine"):
+            merged = _detect_batch_routed(grays, quads, scores, gsize)
+            if merged is None:
+                merged = torch.stack([
+                    _refine_one(grays[i], quads[i], scores[i], gsize)
+                    for i in range(frames.shape[0])])
         return merged, scores
-    corners = [_detect_refine(grays[i], quads[i], scores[i], gsize)
-               for i in range(frames.shape[0])]
-    return torch.stack(corners), scores
+
+
+def accept_detections(detected: torch.Tensor, scores: torch.Tensor,
+                      seeds: torch.Tensor) -> torch.Tensor:
+    """Each board's detected corners where they are finite and its score
+    reaches ``DETECT_MIN_SCORE`` (``BoardFinderAuto._detect``'s rule, a
+    board at a time), its row of ``seeds`` elsewhere, chosen on the
+    device: detected (n, 4, 2), scores (n,), seeds (n, 4, 2) → (n, 4, 2)
+    in ``seeds``' dtype."""
+    ok = torch.isfinite(detected).all(dim=-1).all(dim=-1) \
+        & (scores >= DETECT_MIN_SCORE)
+    return torch.where(ok[:, None, None], detected.to(seeds.dtype), seeds)
 
 
 def detect_batch_stable(frames: torch.Tensor,
@@ -2208,7 +2242,7 @@ class BoardFinderAuto(BoardFinder):
         # propagates to the isfinite check.
         det, scores = host_read(torch.quantile(corners_all, 0.5, dim=0),
                                 scores)
-        if not np.isfinite(det).all() or scores.max() < 0.1:
+        if not np.isfinite(det).all() or scores.max() < DETECT_MIN_SCORE:
             return False
         if not self._lens_checked:
             # First successful board sighting: calibrate the (fixed,

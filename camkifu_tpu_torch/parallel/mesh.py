@@ -29,7 +29,8 @@ import contextlib
 
 import torch
 
-from camkifu_tpu_torch.board.bf_auto import rectify_track_streams
+from camkifu_tpu_torch.board.bf_auto import accept_detections, \
+    detect_batch, rectify_track_streams
 from camkifu_tpu_torch.config import cvconf, guiconf
 from camkifu_tpu_torch.ops.lens import Lens, check_lens
 from camkifu_tpu_torch.ops.warp import canonical_corners, homography_dlt, \
@@ -240,38 +241,59 @@ def multistream_read_meta(states, frames: torch.Tensor,
                             zone)
 
 
-def _track_read(states, frames, seeds, lenses, gsize, zone):
+def _track_read(states, frames, seeds, lenses, gsize, zone, redetect=False):
+    if redetect:
+        detected, scores = detect_batch(frames[:, 0], gsize=gsize)
+        seeds = accept_detections(detected, scores, seeds)
     canon, corners, sharp, align, new_seeds = rectify_track_streams(
         frames, seeds, gsize=gsize, zone=zone, lenses=lenses)
     new_states, labels, conf, agitation = sf_meta.scan_streams(
         states, canon, gsize, zone)
-    return (new_states, labels, conf, agitation, corners, sharp, align,
-            new_seeds)
+    out = (new_states, labels, conf, agitation, corners, sharp, align,
+           new_seeds)
+    return out + (detected, scores) if redetect else out
 
 
 def multistream_track_read(states, frames: torch.Tensor, seeds: torch.Tensor,
                            gsize: int = guiconf.gsize,
                            zone: int = cvconf.zone_size,
-                           lenses: Lens | None = None, *, mesh=None):
+                           lenses: Lens | None = None, *, mesh=None,
+                           redetect: bool = False):
     """Config 4 × config 5 (the reference's ``_track_all_streams`` under a
     mesh): the fused tracking engine (per-frame board tracking,
     rectification, classification, vote scan) over n independent handheld
     streams, the stream-batched tracker (one warp launch a chunk for every
     stream) then the stream-batched vote scan, on each shard. Each
     stream's seed (its last detection or previous ``new_seed``)
-    re-anchors at its own last frame. Nothing in the call waits for the
-    device. ``lenses``: None, or each stream's camera as one stacked
-    ``ops.lens.Lens`` (``stack_lenses``, made once and held across calls;
-    independent streams come from different cameras; with a mesh it may be
-    ``shard``ed once), or one ``Lens`` of numbers for all.
+    re-anchors at its own last frame. Without ``redetect`` nothing in the
+    call waits for the device. ``lenses``: None, or each stream's camera
+    as one stacked ``ops.lens.Lens`` (``stack_lenses``, made once and held
+    across calls; independent streams come from different cameras; with a
+    mesh it may be ``shard``ed once), or one ``Lens`` of numbers for all.
+
+    ``redetect``: first find every stream's board again on its first frame
+    (``bf_auto.detect_batch``, each shard its own streams); a stream whose
+    detection is accepted (``bf_auto.accept_detections``: finite, scoring
+    at least ``DETECT_MIN_SCORE``) is tracked from the detected corners,
+    the others from their carried seeds, chosen on the device. The caller
+    keeps the cadence (a runtime re-detects every ``cvconf.bf_period``
+    batches). The call then waits for the device: once on the
+    shared-canvas verdicts, and twice a frame of a chunk that fails
+    validation (the per-frame refine's two route tests). Pinhole cameras
+    only: with ``lenses`` it raises, as detection runs on raw frames.
 
     Returns (states, labels (n, B, g, g), conf, agitation (n, B), corners
-    (n, B, 4, 2), sharpness (n, B), align (n, B), new_seeds (n, 4, 2));
-    with a ``mesh``, each a ``Sharded``.
+    (n, B, 4, 2), sharpness (n, B), align (n, B), new_seeds (n, 4, 2)),
+    and with ``redetect`` also (detected (n, 4, 2), scores (n,)); with a
+    ``mesh``, each a ``Sharded``.
     """
+    if redetect and lenses is not None:
+        raise ValueError("multistream_track_read: redetect finds boards on "
+                         "pinhole frames only; it takes no lenses")
     with span("camkifu.multistream_track_read"):
         if mesh is None:
-            return _track_read(states, frames, seeds, lenses, gsize, zone)
+            return _track_read(states, frames, seeds, lenses, gsize, zone,
+                               redetect)
         if not isinstance(lenses, Sharded):
             check_lens(lenses)
         if isinstance(lenses, Sharded) or (
@@ -279,4 +301,4 @@ def multistream_track_read(states, frames: torch.Tensor, seeds: torch.Tensor,
             lenses = shard(lenses, mesh)
         return _run_sharded(mesh, _track_read, shard(states, mesh),
                             shard(frames, mesh), shard(seeds, mesh), lenses,
-                            gsize, zone)
+                            gsize, zone, redetect)

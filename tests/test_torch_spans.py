@@ -31,8 +31,12 @@ ENTRY = {"fixed": "camkifu.multistream_read_meta",
          "handheld": "camkifu.multistream_track_read"}
 SCAN = ("camkifu.scan_streams.classify", "camkifu.scan_streams.votes")
 TRACK = "camkifu.rectify_track_streams"
-#: Every span of the package; a metric of the benchmark reads each.
+#: Every span of the stream entries' own layers.
 SPANS = {*ENTRY.values(), *SCAN, TRACK}
+#: Detection's spans, on the stream path only with ``redetect``
+#: (tests/test_torch_reanchor_spans.py).
+DETECT = {"camkifu.detect_batch", "camkifu.detect_batch.coarse",
+          "camkifu.detect_batch.refine", "camkifu.detect_batch.refine_one"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -163,7 +167,7 @@ def test_every_span_is_named_camkifu_and_no_other_helper_traces():
         if path.name != "profiling.py":
             assert "record_function" not in text, path
     assert bare == []
-    assert names == SPANS
+    assert names == SPANS | DETECT
     assert all(n.startswith("camkifu.") for n in names)
     own = {n for n, v in vars(profiling).items()
            if getattr(v, "__module__", None) == profiling.__name__}
