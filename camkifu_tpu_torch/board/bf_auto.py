@@ -1289,11 +1289,10 @@ def _refine_shared_batch(grays: torch.Tensor, shared_quad: torch.Tensor,
             torch.stack(concs))
 
 
-def _shared_route_body(grays, quads, scores, gsize: int):
-    """Shared-canvas refine + validity verdict for ONE chunk, all on the
-    device: every frame line-dominated, the stage-1 quads within
-    SHARED_REFINE_SPREAD cells of the chunk median, no derotate trip, and
-    finite corners fold into one boolean."""
+def _shared_gate(quads, scores, gsize: int):
+    """The stage-1 part of ONE chunk's verdict, on the device → (ok, the
+    chunk's median quad): every quad finite and line-dominated, and
+    within SHARED_REFINE_SPREAD cells of the chunk median."""
     # The median of an even count averages the two middle values, as
     # jnp.median does; torch.median would return the lower one.
     med = torch.quantile(quads, 0.5, dim=0)
@@ -1301,53 +1300,78 @@ def _shared_route_body(grays, quads, scores, gsize: int):
     ok = torch.isfinite(quads).all() & (scores > 0.55).all() \
         & (cell > 1e-6) \
         & ((quads - med).abs().amax() <= SHARED_REFINE_SPREAD * cell)
-    corners, deltas, concs = _refine_shared_batch(grays, med, quads, gsize)
-    trip = ((torch.abs(deltas * (2.0 / 3.0)) > DEROTATE_TRIP)
-            & (concs > DEROTATE_MIN_CONC)).any()
-    ok = ok & ~trip & torch.isfinite(corners).all()
-    return corners, ok
+    return ok, med
+
+
+def _shared_refine(grays, med, quads, gsize: int):
+    """ONE chunk refined on the canvas of its median quad ``med`` →
+    (corners, the post-refine part of its verdict: no derotate trip and
+    finite corners), on the device; in its own span."""
+    with span("camkifu.detect_batch.shared"):
+        corners, deltas, concs = _refine_shared_batch(grays, med, quads,
+                                                      gsize)
+        trip = ((torch.abs(deltas * (2.0 / 3.0)) > DEROTATE_TRIP)
+                & (concs > DEROTATE_MIN_CONC)).any()
+        return corners, ~trip & torch.isfinite(corners).all()
 
 
 def _chunked_route(grays, quads, scores, gsize: int, chunk: int):
     """The batch through per-chunk shared-canvas refines → (corners
-    (B, 4, 2), verdicts (B // chunk,) bool), both left on the device. The
-    reference's jitted entry points around it (``_route_and_refine_chunked``,
-    ``_route_and_refine_shared`` for one chunk, and ``_detect_batch_fused``
-    with stage 1 ahead of it) are this function here: eager PyTorch needs
-    no separate entry point."""
-    out = [_shared_route_body(grays[lo:lo + chunk], quads[lo:lo + chunk],
-                              scores[lo:lo + chunk], gsize)
-           for lo in range(0, grays.shape[0], chunk)]
-    return (torch.cat([c for c, _ in out]),
-            torch.stack([ok for _, ok in out]))
+    (B, 4, 2), full verdicts (B // chunk,) bool: gate and post-refine
+    parts), both left on the device. The reference's jitted entry points
+    around it (``_route_and_refine_chunked``, ``_route_and_refine_shared``
+    for one chunk, and ``_detect_batch_fused`` with stage 1 ahead of it)
+    are this function here: eager PyTorch needs no separate entry point.
+    ``_detect_batch_routed`` refines only the chunks whose gate holds."""
+    corners, oks = [], []
+    for lo in range(0, grays.shape[0], chunk):
+        part = slice(lo, lo + chunk)
+        gate, med = _shared_gate(quads[part], scores[part], gsize)
+        c, ok = _shared_refine(grays[part], med, quads[part], gsize)
+        corners.append(c)
+        oks.append(gate & ok)
+    return torch.cat(corners), torch.stack(oks)
 
 
 def _detect_batch_routed(grays, quads, scores, gsize: int):
     """Route a batch through per-chunk shared-canvas refines; None if every
-    chunk fell back. One host wait: the verdict fetch."""
+    chunk fell back. Every chunk's gate is fetched in one host read, and
+    only the chunks that pass it are refined on their shared canvas (a
+    failed gate would discard those corners); a second read fetches their
+    post-refine verdicts."""
     b = grays.shape[0]
     if b < 2:
         return None
     chunk = SHARED_CHUNK if b % SHARED_CHUNK == 0 else b
-    corners, oks = _chunked_route(grays, quads, scores, gsize, chunk)
-    return _merge_routed(grays, quads, scores, corners, oks.cpu().numpy(),
+    parts = [slice(lo, lo + chunk) for lo in range(0, b, chunk)]
+    gates, meds = zip(*(_shared_gate(quads[p], scores[p], gsize)
+                        for p in parts))
+    oks = torch.stack(gates).cpu().numpy()
+    if not oks.any():
+        return None
+    refined = {c: _shared_refine(grays[parts[c]], meds[c], quads[parts[c]],
+                                 gsize)
+               for c in np.flatnonzero(oks).tolist()}
+    oks[list(refined)] = torch.stack([ok for _, ok in refined.values()]) \
+        .cpu().numpy()
+    return _merge_routed(grays, quads, scores,
+                         {c: cs for c, (cs, _) in refined.items()}, oks,
                          chunk, gsize)
 
 
 def _merge_routed(grays, quads, scores, corners, oks_host: np.ndarray,
                   chunk: int, gsize: int):
-    """Shared-canvas chunks where the verdict holds, per-frame refines of
-    the failed chunks (``_detect_refine``, the reference's ``_refine_one``);
-    None when no chunk validated."""
+    """Shared-canvas chunks where the verdict holds (``corners[c]``: chunk
+    c's shared-canvas corners), per-frame refines of the failed
+    chunks (``_detect_refine``, the reference's ``_refine_one``); None when
+    no chunk validated."""
     if not oks_host.any():
         return None
-    if oks_host.all():
-        return corners
     out = []
     for c, ok in enumerate(oks_host):
         lo, hi = c * chunk, (c + 1) * chunk
         if ok:
-            out.append(corners[lo:hi])
+            out.append(corners[c])
         else:
             out.append(torch.stack([
                 _refine_one(grays[i], quads[i], scores[i], gsize)
@@ -1370,15 +1394,19 @@ def detect_batch(frames: torch.Tensor, res: int = cvconf.bf_resolution,
 
     Stage 1 runs batched; with two frames or more, each chunk of
     ``SHARED_CHUNK`` frames (or the whole batch where B is not a multiple)
-    is refined on its own shared canvas and validated on the device. The
-    host fetches the verdicts once; chunks that fail validation are
-    refined frame by frame, as ``detect_corners`` refines.
+    is gated on its stage-1 quads and scores, and a chunk that passes is
+    refined on its own shared canvas and validated on the device. The
+    host fetches the gates, then the verdicts of the chunks refined;
+    chunks that fail either are refined frame by frame, as
+    ``detect_corners`` refines.
 
     Spans: ``camkifu.detect_batch`` around the call, holding
     ``camkifu.detect_batch.coarse`` (stage 1: the edge, hysteresis and
-    Hough launches) and ``camkifu.detect_batch.refine`` (the shared-canvas
-    refines, the verdict fetch and any per-frame refine), which holds one
-    ``camkifu.detect_batch.refine_one`` a frame refined alone.
+    Hough launches) and ``camkifu.detect_batch.refine`` (the gates, the
+    shared-canvas refines, the verdict fetches and any per-frame refine),
+    which holds one ``camkifu.detect_batch.shared`` a chunk refined on
+    its shared canvas and one ``camkifu.detect_batch.refine_one`` a frame
+    refined alone.
     """
     with span("camkifu.detect_batch"):
         with span("camkifu.detect_batch.coarse"):

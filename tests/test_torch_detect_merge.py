@@ -65,8 +65,9 @@ def test_detect_batch_merges_a_failed_chunk(monkeypatch):
     # 360p board is a hard case for the refine itself, in JAX too).
     assert np.abs(out[:3].numpy() - gts).max() < TOL_PX
     # No chunk validates → None, and detect_batch refines every frame.
-    assert bf_auto._merge_routed(grays, quads, scores, corners,
-                                 np.zeros(2, bool), 2, 19) is None
+    assert bf_auto._merge_routed(grays, quads, scores,
+                                 list(corners.split(2)), np.zeros(2, bool),
+                                 2, 19) is None
 
     # JAX's detect_batch on the same frames, its verdicts read where it
     # merges them.

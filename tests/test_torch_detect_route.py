@@ -81,11 +81,7 @@ def test_shared_route_verdict_takes_even_median(monkeypatch):
     lower = float((quads - torch.median(quads, dim=0).values).abs().max())
     monkeypatch.setattr(bf_auto, "SHARED_REFINE_SPREAD",
                         0.5 * (gate + lower) / cell)
-    monkeypatch.setattr(bf_auto, "_refine_shared_batch",
-                        lambda g, m, q, gs: (q, torch.zeros(4),
-                                             torch.zeros(4)))
-    _, ok = bf_auto._shared_route_body(None, quads, scores.clamp(min=0.9),
-                                       19)
+    ok, _ = bf_auto._shared_gate(quads, scores.clamp(min=0.9), 19)
     assert bool(ok)
 
 

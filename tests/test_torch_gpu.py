@@ -1512,3 +1512,80 @@ def test_scan_streams_is_one_vote_scan_launch():
     assert vote_scan_kernel.launches == before + 2
     assert states.frame_count.tolist() == [12, 12]
     assert float(states.bg.min()) >= 0.0
+
+
+def _reanchor_frames(dev, seed: int = 832043696, frame: int = 128):
+    """(8, 1080, 1920, 3) uint8 on ``dev``: each stream's frame ``frame``
+    of ``handheld19.reanchor``'s pool (128: pool batch 8, its second
+    re-detection), the benchmark generator's boards and pinhole corners
+    under one noise draw."""
+    import json
+    from pathlib import Path
+
+    from benchmark.traffic import generator
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark/configs/"
+                      "handheld19_reanchor_1080p.json").read_text())
+    mix = json.loads((root / "benchmark/traffic/streams.json").read_text())
+    plan = generator.stream_plan(cfg, mix, seed)
+    clean = generator.render_clean(
+        torch.as_tensor(np.stack([p["boards"][frame] for p in plan]),
+                        device=dev),
+        np.stack([p["pinhole"][frame] for p in plan]),
+        generator.pinhole_grid(tuple(cfg["frame_hw"]), 0.0, dev),
+        cfg["line_width"])
+    return generator.add_noise(clean, cfg["noise_sigma"],
+                               torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("kind", ["reanchor", "fixed"])
+def test_detect_batch_on_the_card_refines_only_where_the_gate_holds(kind):
+    """One chunk of 8 1080p frames: the re-anchor cell's streams, whose
+    stage-1 quads fail the shared-canvas gate, or one fixed camera's
+    frame 8 times, which passes it. ``detect_batch`` returns the corners
+    and scores of the route that refines the chunk on its shared canvas
+    first (``_chunked_route``, then ``_merge_routed`` or every frame
+    refined alone), bit for bit; where the gate fails it makes fewer
+    launches than that route by at least the shared refine's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.metrics._busy import is_launch
+    from camkifu_tpu_torch.board import bf_auto
+
+    dev = _device()
+    frames = _reanchor_frames(dev) if kind == "reanchor" \
+        else _frames(dev, 8, (1080, 1920))
+
+    def old_route():
+        grays, quads, scores = bf_auto._detect_prepare_batch(frames, 256)
+        corners, oks = bf_auto._chunked_route(grays, quads, scores, 19, 8)
+        merged = bf_auto._merge_routed(grays, quads, scores, [corners],
+                                       oks.cpu().numpy(), 8, 19)
+        if merged is None:
+            merged = torch.stack([bf_auto._detect_refine(
+                grays[i], quads[i], scores[i], 19) for i in range(8)])
+        return merged, scores
+
+    def launches(fn):
+        fn()                                   # warm every shape
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, sum(is_launch(e.name) for e in prof.events())
+
+    (old, old_scores), n_old = launches(old_route)
+    (new, new_scores), n_new = launches(lambda: bf_auto.detect_batch(frames))
+    assert torch.equal(new.view(torch.int32), old.view(torch.int32))
+    assert torch.equal(new_scores.view(torch.int32),
+                       old_scores.view(torch.int32))
+    grays, quads, scores = bf_auto._detect_prepare_batch(frames, 256)
+    gate, med = bf_auto._shared_gate(quads, scores, 19)
+    assert bool(gate) == (kind == "fixed")
+    if kind == "reanchor":
+        _, n_shared = launches(lambda: bf_auto._refine_shared_batch(
+            grays, med, quads, 19))
+        assert n_shared > 0 and n_old - n_new >= n_shared, \
+            (n_old, n_new, n_shared)

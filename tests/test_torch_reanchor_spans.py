@@ -1,12 +1,14 @@
 """Detection's spans on the re-detecting stream path: under a CPU
 ``torch.profiler`` session each ``multistream_track_read(...,
 redetect=True)`` call holds one ``camkifu.detect_batch`` inside its entry
-span, and inside that one ``.coarse`` and one ``.refine``; a chunk forced
-to fail validation gives one ``.refine_one`` a frame, inside ``.refine``;
-a call without ``redetect`` holds none of them. Two streams × 2 frames of
-the benchmark generator's 360×640 handheld boards, the Hough votes of
-each frame's first ``HOUGH_POINTS`` edge points alone (the plain
-accumulator takes seconds a frame on the CPU; no span depends on it)."""
+span, and inside that one ``.coarse`` and one ``.refine``, which holds
+one ``.shared`` for the chunk whose gate holds; a chunk forced to fail
+its gate gives no ``.shared`` and one ``.refine_one`` a frame, inside
+``.refine``; a call without ``redetect`` holds none of them. Two
+streams × 2 frames of the benchmark generator's 360×640 handheld boards,
+the Hough votes of each frame's first ``HOUGH_POINTS`` edge points alone
+(the plain accumulator takes seconds a frame on the CPU; no span depends
+on it)."""
 
 import functools
 import json
@@ -29,6 +31,7 @@ ENTRY = "camkifu.multistream_track_read"
 DETECT = "camkifu.detect_batch"
 COARSE = "camkifu.detect_batch.coarse"
 REFINE = "camkifu.detect_batch.refine"
+SHARED = "camkifu.detect_batch.shared"
 ONE = "camkifu.detect_batch.refine_one"
 HOUGH_POINTS = 512
 
@@ -104,6 +107,7 @@ def test_one_detection_a_call_inside_the_entry_span():
     refine = next((s, e) for n, s, e, _ in spans if n == REFINE)
     assert coarse[0] < coarse[1] <= refine[0]
     # These boards validate on their shared canvas.
+    assert _count(spans, SHARED) == 1 and _inside(spans, SHARED, REFINE)
     assert _count(spans, ONE) == 0
 
 
@@ -113,6 +117,8 @@ def test_a_failed_chunk_gives_one_refine_one_a_frame(monkeypatch):
     assert [_count(spans, n) for n in (DETECT, COARSE, REFINE)] == [1, 1, 1]
     assert _count(spans, ONE) == N
     assert _inside(spans, ONE, REFINE)
+    # The gate fails before the shared refine: none runs.
+    assert _count(spans, SHARED) == 0
 
 
 def test_without_redetect_no_detection_span():

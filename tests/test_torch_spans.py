@@ -36,7 +36,8 @@ SPANS = {*ENTRY.values(), *SCAN, TRACK}
 #: Detection's spans, on the stream path only with ``redetect``
 #: (tests/test_torch_reanchor_spans.py).
 DETECT = {"camkifu.detect_batch", "camkifu.detect_batch.coarse",
-          "camkifu.detect_batch.refine", "camkifu.detect_batch.refine_one"}
+          "camkifu.detect_batch.refine", "camkifu.detect_batch.shared",
+          "camkifu.detect_batch.refine_one"}
 
 
 @functools.lru_cache(maxsize=1)
